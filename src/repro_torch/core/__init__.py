@@ -1,0 +1,21 @@
+"""Core DPRT library of the port: primitives, geometry, plans."""
+from .dprt import (skew_sum, strip_partial, align_partial, is_prime,
+                   next_prime, accum_dtype_for, float_dtype_for,
+                   int32_accum_exact, dprt_oracle_np, idprt_oracle_np)
+from .geometry import Geometry, normalize_geometry
+from .plan import (Backend, RadonPlan, available_backends,
+                   backend_capabilities, get_backend, get_plan,
+                   plan_cache_clear, plan_cache_discard, plan_cache_entries,
+                   plan_cache_info, plan_from_description, register_backend,
+                   select_backend, set_plan_cache_maxsize)
+
+__all__ = [
+    "skew_sum", "strip_partial", "align_partial", "is_prime", "next_prime",
+    "accum_dtype_for", "float_dtype_for", "int32_accum_exact",
+    "dprt_oracle_np", "idprt_oracle_np",
+    "Geometry", "normalize_geometry",
+    "Backend", "RadonPlan", "available_backends", "backend_capabilities",
+    "get_backend", "get_plan", "plan_cache_clear", "plan_cache_discard",
+    "plan_cache_entries", "plan_cache_info", "plan_from_description",
+    "register_backend", "select_backend", "set_plan_cache_maxsize",
+]

@@ -1,0 +1,776 @@
+"""Transform plans: the single dispatch point for every DPRT in the port.
+
+The port of :mod:`repro.core.plan`.  Two layers:
+
+1. **Backend registry.**  Each transform strategy registers a
+   :class:`Backend` declaring its capabilities plus uniform callables
+   for the skew-sum core and the full forward/inverse transforms:
+   ``gather`` / ``horner`` / ``strips`` (plain torch, any device) and
+   ``cuda`` -- the hand-written Hopper kernel K1, in the reference's
+   ``pallas`` slot (priority 100, batched-native, takes ``m_block``).
+   ``method="pallas"`` is accepted as an alias of ``cuda``, so reference
+   call sites keep working.  ``method="auto"`` picks the highest-priority
+   backend for the dtype; plans are device-agnostic, and on a CPU tensor
+   the ``cuda`` backend runs K1's plain version.
+
+2. **RadonPlan.**  A cached, frozen plan for ``(H, W)`` or ``(B, H, W)``
+   inputs: zero-embed into the smallest prime ``P >= max(H, W)``,
+   transform, and crop back in the inverse, so
+   ``plan.inverse(plan.forward(f)) == f`` bit-exactly for integer
+   images.  ``block_rows`` runs the strip decomposition one strip at a
+   time (one K1 launch per strip with its ``row_offset`` on the ``cuda``
+   backend, a torch Horner scan elsewhere); ``block_batch`` runs a stack
+   through the backend in chunks.
+
+Not in this slice: ``stream_rows`` (the streamed kernels K4/K5, ROADMAP
+Queue 1 item 7), ``mesh`` and the sharded backends (item 9) and
+``RadonPlan.pipeline`` (item 5) raise ``NotImplementedError``.
+
+Plans are cached by (shape, dtype, method, knobs) in a bounded LRU
+(``REPRO_PLAN_CACHE_MAXSIZE``, default 512) with hit/miss/eviction
+counters; building one is pure Python shape math.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import os
+import threading
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from . import geometry as G
+from .dprt import (_skew_sum_gather, _skew_sum_horner, _skew_sum_strips,
+                   accum_dtype_for, align_partial, as_dtype, dtype_kind,
+                   dtype_name, strip_partial)
+from ..kernels.tuning import resolve_blocks
+
+__all__ = [
+    "Backend",
+    "register_backend",
+    "get_backend",
+    "available_backends",
+    "backend_capabilities",
+    "select_backend",
+    "RadonPlan",
+    "get_plan",
+    "plan_from_description",
+    "plan_cache_info",
+    "plan_cache_entries",
+    "plan_cache_clear",
+    "plan_cache_discard",
+    "set_plan_cache_maxsize",
+    "dispatch_skew_sum",
+    "METHOD_ALIASES",
+]
+
+#: reference method names that resolve to a port backend
+METHOD_ALIASES = {"pallas": "cuda"}
+
+MESH_TODO = ("mesh and the sharded backends are not ported yet: ROADMAP "
+             "Queue 1 item 9")
+STREAM_ROWS_TODO = ("stream_rows (the streamed kernels K4/K5) is not "
+                    "ported yet: ROADMAP Queue 1 item 7")
+
+
+# ---------------------------------------------------------------------------
+# backend registry
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """One transform strategy and its declared capabilities.
+
+    All callables share the keyword surface
+    ``(x, *, strip_rows=None, m_block=None, mesh=None)`` (plus ``sign``
+    for ``skew_sum``); adapters ignore knobs they do not use.  Every
+    callable takes ``(…, N, N)`` stacks; ``batched_native`` marks the
+    backends that transform a whole stack in one kernel launch.
+    """
+
+    name: str
+    skew_sum: Callable
+    forward: Callable
+    inverse: Callable
+    forward_batched: Optional[Callable] = None
+    inverse_batched: Optional[Callable] = None
+    skew_batched: Optional[Callable] = None  # (B, N, N) stacks in one call
+    #: partial skew-sum of a row strip at global row ``row_offset``:
+    #: ``(x, sign, *, row_offset, strip_rows, m_block)``; the ``block_rows``
+    #: scan runs it once per strip.  ``None``: the plain torch Horner.
+    skew_strip: Optional[Callable] = None
+    batched_native: bool = False
+    needs_strip_rows: bool = False
+    takes_m_block: bool = False
+    takes_stream_rows: bool = False
+    mesh_aware: bool = False
+    dtype_kinds: Optional[Tuple[str, ...]] = None  # None = any dtype
+    priority: int = 0  # higher wins under method="auto"
+    note: str = ""
+
+    def supports_dtype(self, dtype) -> bool:
+        if self.dtype_kinds is None:
+            return True
+        return dtype_kind(as_dtype(dtype)) in self.dtype_kinds
+
+
+_REGISTRY: dict = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    """Register (or replace) a backend; returns it for chaining."""
+    _REGISTRY[backend.name] = backend
+    if "_PLAN_CACHE" in globals():  # cached plans may pin a stale choice
+        plan_cache_clear()
+    return backend
+
+
+def _canonical_method(name: str) -> str:
+    return METHOD_ALIASES.get(name, name)
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[_canonical_method(name)]
+    except KeyError:
+        raise ValueError(
+            f"unknown method {name!r}; registered backends: "
+            f"{available_backends()} (or 'auto', or an alias "
+            f"{tuple(METHOD_ALIASES)})") from None
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def backend_capabilities() -> list:
+    """Capability rows (dicts) for docs, ``serve --list-backends``, tests."""
+    rows = []
+    for name in available_backends():
+        b = _REGISTRY[name]
+        rows.append({
+            "name": b.name,
+            "batched_native": b.batched_native,
+            "needs_strip_rows": b.needs_strip_rows,
+            "takes_m_block": b.takes_m_block,
+            "stream": b.takes_stream_rows,
+            "mesh_aware": b.mesh_aware,
+            "dtypes": "any" if b.dtype_kinds is None
+                      else ",".join(b.dtype_kinds),
+            "priority": b.priority,
+            "note": b.note,
+        })
+    return rows
+
+
+def select_backend(n: int, dtype, batch: Optional[int] = None,
+                   mesh=None) -> str:
+    """``method="auto"``: the highest-priority backend supporting the
+    dtype (``cuda`` for every int/float image, else ``horner``)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+    best = None
+    for name in available_backends():
+        b = _REGISTRY[name]
+        if b.mesh_aware or not b.supports_dtype(dtype):
+            continue
+        if best is None or b.priority > best.priority:
+            best = b
+    if best is None:
+        raise ValueError(f"no registered backend supports dtype {dtype}")
+    return best.name
+
+
+# ---------------------------------------------------------------------------
+# shared transform epilogues (rank-polymorphic: (N+1, N) or (…, N+1, N))
+# ---------------------------------------------------------------------------
+def _floor_or_true_div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's ``x // n`` (floor) for integers, ``x / n`` else."""
+    if x.dtype.is_floating_point:
+        return x / n
+    return torch.div(x, n, rounding_mode="floor")
+
+
+def _attach_row_sum(core: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Append the R(N, d) = sum_j f(d, j) projection row."""
+    last = f.to(core.dtype).sum(-1, dtype=core.dtype)[..., None, :]
+    return torch.cat([core, last], dim=-2)
+
+
+def _inverse_epilogue(z: torch.Tensor, r: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """-S + R(N, i) correction and the exact divide-by-N (paper eq. 3-4)."""
+    acc = z.dtype
+    s = r[..., 0, :].to(acc).sum(-1, dtype=acc)[..., None, None]
+    num = z - s + r[..., n, :].to(acc)[..., :, None]
+    return _floor_or_true_div(num, n)
+
+
+def _make_forward(skew: Callable) -> Callable:
+    def fwd(f, *, strip_rows=None, m_block=None, mesh=None):
+        core = skew(f, +1, strip_rows=strip_rows, m_block=m_block, mesh=mesh)
+        return _attach_row_sum(core, f)
+    return fwd
+
+
+def _make_inverse(skew: Callable) -> Callable:
+    def inv(r, *, strip_rows=None, m_block=None, mesh=None):
+        n = r.shape[-1]
+        z = skew(r[..., :n, :], -1, strip_rows=strip_rows, m_block=m_block,
+                 mesh=mesh)
+        return _inverse_epilogue(z, r, n)
+    return inv
+
+
+# ---------------------------------------------------------------------------
+# exact transposes (adjoints) of the two transforms -- the algebra of the
+# reference's plan layer:
+#
+#   (A^T r)[i, j] = skew_sum(r[:N], -1)[i, j] + r(N, i)
+#   (B^T g)       = ( A g - total(g) * (e_0 1^T) ) / N      (B = A^-1)
+# ---------------------------------------------------------------------------
+def _adjoint_epilogue(z: torch.Tensor, r: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """z = skew_sum(r[..., :N, :], -1); add the row-sum row's transpose."""
+    return z + r[..., n, :].to(z.dtype)[..., :, None]
+
+
+def _inverse_adjoint_epilogue(core: torch.Tensor, g: torch.Tensor,
+                              n: int) -> torch.Tensor:
+    """core = skew_sum(g, +1); build (A g - total(g) E00) / N."""
+    acc = core.dtype
+    ga = g.to(acc)
+    rowsum = ga.sum(-1, dtype=acc)[..., None, :]             # (…, 1, N)
+    out = torch.cat([core, rowsum], dim=-2)                   # = A g
+    total = ga.sum((-2, -1), dtype=acc)
+    out[..., 0, :] -= total[..., None]
+    # integers follow the inverse's floor-division convention
+    return _floor_or_true_div(out, n)
+
+
+# ---------------------------------------------------------------------------
+# built-in backends
+# ---------------------------------------------------------------------------
+def _gather_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+    return _skew_sum_gather(g, sign)
+
+
+def _horner_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+    return _skew_sum_horner(g, sign)
+
+
+def _strips_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+    if strip_rows is None:
+        itemsize = accum_dtype_for(g.dtype, g.shape[-1]).itemsize
+        strip_rows = resolve_blocks(g.shape[-1], itemsize)[0]
+    return _skew_sum_strips(g, sign, strip_rows)
+
+
+# the kernels package imports core, so the cuda adapters import it lazily
+def _cuda_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+    from ..kernels.ops import skew_sum_cuda
+    return skew_sum_cuda(g, sign, strip_rows=strip_rows, m_block=m_block)
+
+
+def _cuda_skew_strip(g, sign, *, row_offset, strip_rows=None, m_block=None):
+    from ..kernels.ops import skew_sum_cuda_strip
+    return skew_sum_cuda_strip(g, sign, row_offset=row_offset,
+                               strip_rows=strip_rows, m_block=m_block)
+
+
+def _cuda_forward(f, *, strip_rows=None, m_block=None, mesh=None):
+    from ..kernels.ops import dprt_cuda
+    return dprt_cuda(f, strip_rows=strip_rows, m_block=m_block)
+
+
+def _cuda_inverse(r, *, strip_rows=None, m_block=None, mesh=None):
+    from ..kernels.ops import idprt_cuda
+    return idprt_cuda(r, strip_rows=strip_rows, m_block=m_block)
+
+
+register_backend(Backend(
+    name="gather",
+    skew_sum=_gather_skew,
+    forward=_make_forward(_gather_skew),
+    inverse=_make_inverse(_gather_skew),
+    priority=10,
+    note="per-direction shear oracle (systolic analog)",
+))
+register_backend(Backend(
+    name="horner",
+    skew_sum=_horner_skew,
+    forward=_make_forward(_horner_skew),
+    inverse=_make_inverse(_horner_skew),
+    priority=50,
+    note="paper Sec. III-B shift-and-add dataflow",
+))
+register_backend(Backend(
+    name="strips",
+    skew_sum=_strips_skew,
+    forward=_make_forward(_strips_skew),
+    inverse=_make_inverse(_strips_skew),
+    needs_strip_rows=True,
+    priority=30,
+    note="scalable SFDPRT strip decomposition (eq. 5-8)",
+))
+register_backend(Backend(
+    name="cuda",
+    skew_sum=_cuda_skew,
+    forward=_cuda_forward,
+    inverse=_cuda_inverse,
+    forward_batched=_cuda_forward,   # the same wrappers take (B, N, N)
+    inverse_batched=_cuda_inverse,
+    skew_batched=_cuda_skew,
+    skew_strip=_cuda_skew_strip,
+    batched_native=True,
+    takes_m_block=True,
+    dtype_kinds=("i", "u", "f"),
+    priority=100,
+    note="hand-written Hopper SFDPRT kernel K1 (one launch per stack; "
+         "plain torch version on CPU tensors)",
+))
+
+
+# ---------------------------------------------------------------------------
+# blocked (resource-fitting) execution helpers
+# ---------------------------------------------------------------------------
+def _blocked_skew_sum(gmat: torch.Tensor, sign: int, block_rows: int,
+                      acc_dtype, strip_fn: Optional[Callable] = None
+                      ) -> torch.Tensor:
+    """Strip decomposition one strip at a time (bounded memory): the
+    algebra of ``method="strips"`` -- partial skew-sum per strip aligned
+    to its global rows, accumulated (eq. 7-8) -- with one partial live.
+
+    ``strip_fn(strip, sign, row_offset=...)`` computes an aligned
+    partial in one call (K1 with ``row_offset`` for the ``cuda``
+    backend); without it, a torch Horner scan plus one alignment roll.
+    """
+    n = gmat.shape[-1]
+    h = int(block_rows)
+    if h < 1:
+        raise ValueError(f"block_rows must be >= 1, got {h}")
+    acc = torch.zeros((*gmat.shape[:-2], n, n), dtype=acc_dtype,
+                      device=gmat.device)
+    for off in range(0, gmat.shape[-2], h):
+        strip = gmat[..., off:off + h, :]
+        if strip_fn is not None:
+            acc += strip_fn(strip, sign, row_offset=off).to(acc_dtype)
+        else:
+            u = strip_partial(strip, n, sign=sign, acc_dtype=acc_dtype)
+            acc += align_partial(u, off, sign)
+    return acc
+
+
+def _map_chunks(fn: Callable, xb: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Apply a stack-level ``fn`` over batch chunks of ``chunk`` images
+    (bounds live memory to one chunk-sized stack plus the output)."""
+    b = xb.shape[0]
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"block_batch must be >= 1, got {chunk}")
+    if chunk >= b:
+        return fn(xb)
+    return torch.cat([fn(xb[i:i + chunk]) for i in range(0, b, chunk)])
+
+
+# ---------------------------------------------------------------------------
+# RadonPlan
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RadonPlan:
+    """A resolved, cached recipe for transforming one input geometry.
+
+    ``forward`` embeds into the prime domain and returns the
+    ``(…, P+1, P)`` projections; ``inverse`` reconstructs and crops back
+    to ``(…, H, W)``.  Outputs live on the input's device.
+    """
+
+    geometry: G.Geometry
+    method: str                      # resolved backend name (never "auto")
+    requested_method: str            # what the caller asked for
+    strip_rows: Optional[int] = None
+    m_block: Optional[int] = None
+    batch_impl: str = "auto"
+    block_rows: Optional[int] = None
+    stream_rows: Optional[int] = None  # always None: not ported (item 7)
+    block_batch: Optional[int] = None
+    mesh: Optional[object] = None      # always None: not ported (item 9)
+    dtype_name: Optional[str] = None
+
+    @property
+    def backend(self) -> Backend:
+        return get_backend(self.method)
+
+    def _knobs(self) -> dict:
+        return {"strip_rows": self.strip_rows, "m_block": self.m_block,
+                "mesh": self.mesh}
+
+    # -- prime domain; every helper takes (N, N) or (…, N, N) ------------
+    def _blocked(self, x: torch.Tensor, sign: int) -> torch.Tensor:
+        strip = self.backend.skew_strip
+        strip_fn = None if strip is None else functools.partial(
+            strip, strip_rows=self.strip_rows, m_block=self.m_block)
+        return _blocked_skew_sum(x, sign, self.block_rows,
+                                 accum_dtype_for(x.dtype, x.shape[-1]),
+                                 strip_fn)
+
+    def _forward_prime(self, fp: torch.Tensor) -> torch.Tensor:
+        if self.block_rows is not None:
+            return _attach_row_sum(self._blocked(fp, +1), fp)
+        return self.backend.forward(fp, **self._knobs())
+
+    def _inverse_prime(self, r: torch.Tensor) -> torch.Tensor:
+        if self.block_rows is not None:
+            n = r.shape[-1]
+            return _inverse_epilogue(self._blocked(r[..., :n, :], -1), r, n)
+        return self.backend.inverse(r, **self._knobs())
+
+    def _skew_prime(self, x: torch.Tensor, sign: int) -> torch.Tensor:
+        if self.block_rows is not None:
+            return self._blocked(x, sign)
+        return self.backend.skew_sum(x, sign, **self._knobs())
+
+    def _adjoint_prime(self, r: torch.Tensor) -> torch.Tensor:
+        n = self.geometry.prime
+        return _adjoint_epilogue(self._skew_prime(r[..., :n, :], -1), r, n)
+
+    def _inverse_adjoint_prime(self, g: torch.Tensor) -> torch.Tensor:
+        return _inverse_adjoint_epilogue(self._skew_prime(g, +1), g,
+                                         self.geometry.prime)
+
+    # -- batched stacks ----------------------------------------------------
+    def _stack(self, xb: torch.Tensor, native: Optional[Callable],
+               one: Callable) -> torch.Tensor:
+        """A (B, …) stack: the backend's one-launch batched path when it
+        has one, else ``batch_impl`` -- ``map`` loops image by image,
+        ``vmap``/``auto`` hand the whole stack to the rank-polymorphic
+        prime-domain path (the batch dimension written out)."""
+        if native is not None and self.block_rows is None:
+            fn = lambda chunk: native(chunk, **self._knobs())  # noqa: E731
+        elif self.batch_impl == "map":
+            fn = lambda chunk: torch.stack([one(x) for x in chunk])  # noqa
+        else:
+            fn = one
+        if self.block_batch is not None:
+            return _map_chunks(fn, xb, self.block_batch)
+        return fn(xb)
+
+    def _check(self, x: torch.Tensor, want: tuple, what: str) -> None:
+        if tuple(x.shape) != want:
+            raise ValueError(f"plan {what} expects {want}, got "
+                             f"{tuple(x.shape)}")
+
+    # -- public ------------------------------------------------------------
+    def forward(self, f: torch.Tensor) -> torch.Tensor:
+        """(…, H, W) image(s) -> (…, P+1, P) exact projections."""
+        g = self.geometry
+        self._check(f, g.image_shape, "forward")
+        fp = G.embed(f, g)
+        if not g.batched:
+            return self._forward_prime(fp)
+        be = self.backend
+        native = be.forward_batched if be.batched_native else None
+        return self._stack(fp, native, self._forward_prime)
+
+    def inverse(self, r: torch.Tensor) -> torch.Tensor:
+        """(…, P+1, P) projections -> (…, H, W) exact reconstruction."""
+        g = self.geometry
+        self._check(r, g.transform_shape, "inverse")
+        if not g.batched:
+            return G.crop(self._inverse_prime(r), g)
+        be = self.backend
+        native = be.inverse_batched if be.batched_native else None
+        return G.crop(self._stack(r, native, self._inverse_prime), g)
+
+    def adjoint(self, r: torch.Tensor) -> torch.Tensor:
+        """Exact transpose of :meth:`forward`: (…, P+1, P) -> (…, H, W).
+        Distinct from :meth:`inverse` (A^T A != I)."""
+        g = self.geometry
+        self._check(r, g.transform_shape, "adjoint")
+        if not g.batched:
+            return G.crop(self._adjoint_prime(r), g)
+        be = self.backend
+        native = None
+        if be.skew_batched is not None:
+            n = g.prime
+
+            def native(rb, **knobs):
+                z = be.skew_batched(rb[:, :n], -1, **knobs)
+                return _adjoint_epilogue(z, rb, n)
+
+        return G.crop(self._stack(r, native, self._adjoint_prime), g)
+
+    def inverse_adjoint(self, f: torch.Tensor) -> torch.Tensor:
+        """Exact transpose of :meth:`inverse`: (…, H, W) -> (…, P+1, P),
+        realized as (A g - total(g) E00) / N from the same skew-sum.
+        Integer inputs follow the inverse's floor-division convention;
+        use floats for the true adjoint (autograd always does)."""
+        g = self.geometry
+        self._check(f, g.image_shape, "inverse_adjoint")
+        fp = G.embed(f, g)
+        if not g.batched:
+            return self._inverse_adjoint_prime(fp)
+        be = self.backend
+        native = None
+        if be.skew_batched is not None:
+            n = g.prime
+
+            def native(fb, **knobs):
+                return _inverse_adjoint_epilogue(
+                    be.skew_batched(fb, +1, **knobs), fb, n)
+
+        return self._stack(fp, native, self._inverse_adjoint_prime)
+
+    def pipeline(self, f, op: str = "conv", operand=None):
+        raise NotImplementedError(
+            "RadonPlan.pipeline (the fused projection-domain pipeline, "
+            "kernel K2) is not ported yet: ROADMAP Queue 1 item 5")
+
+    def describe(self) -> dict:
+        g = self.geometry
+        return {
+            "image_shape": g.image_shape,
+            "prime": g.prime,
+            "pad": (g.pad_rows, g.pad_cols),
+            "native": g.native,
+            "dtype": self.dtype_name,
+            "method": self.method,
+            "requested_method": self.requested_method,
+            "strip_rows": self.strip_rows,
+            "m_block": self.m_block,
+            "block_rows": self.block_rows,
+            "stream_rows": self.stream_rows,
+            "block_batch": self.block_batch,
+            "mesh": None if self.mesh is None else repr(self.mesh),
+        }
+
+
+# ---------------------------------------------------------------------------
+# plan construction + cache (bounded LRU)
+# ---------------------------------------------------------------------------
+PlanCacheInfo = collections.namedtuple(
+    "PlanCacheInfo", ["hits", "misses", "maxsize", "currsize", "evictions"])
+
+
+def _env_cache_maxsize() -> Optional[int]:
+    """``REPRO_PLAN_CACHE_MAXSIZE``: plans kept live (<= 0 => unbounded)."""
+    raw = os.environ.get("REPRO_PLAN_CACHE_MAXSIZE", "512")
+    try:
+        size = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"REPRO_PLAN_CACHE_MAXSIZE must be an integer, got {raw!r}")
+    return None if size <= 0 else size
+
+
+class _PlanLRU:
+    """A small LRU with an eviction counter.  Build hooks see every newly
+    built plan (the radon layer counts them as retraces); evict hooks
+    release per-plan state in lockstep with the cache."""
+
+    def __init__(self, maxsize: Optional[int]):
+        self.maxsize = maxsize
+        self._data: "collections.OrderedDict" = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._evict_hooks: list = []
+        self._build_hooks: list = []
+        self.hits = self.misses = self.evictions = 0
+
+    def add_evict_hook(self, fn: Callable) -> None:
+        self._evict_hooks.append(fn)
+
+    def add_build_hook(self, fn: Callable) -> None:
+        self._build_hooks.append(fn)
+
+    def _shrink_locked(self) -> list:
+        dropped = []
+        while self.maxsize is not None and len(self._data) > self.maxsize:
+            dropped.append(self._data.popitem(last=False)[1])
+            self.evictions += 1
+        return dropped
+
+    def _fire(self, dropped: list) -> None:
+        for plan in dropped:        # outside the lock: hooks may be slow
+            for fn in self._evict_hooks:
+                fn(plan)
+
+    def get_or_build(self, key, builder: Callable):
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                self.hits += 1
+                return self._data[key]
+        value = builder()          # build outside the lock (pure python)
+        with self._lock:
+            if key in self._data:  # racer built it first: keep theirs
+                self._data.move_to_end(key)
+                return self._data[key]
+            self.misses += 1
+            self._data[key] = value
+            dropped = self._shrink_locked()
+        for fn in self._build_hooks:
+            fn(value)
+        self._fire(dropped)
+        return value
+
+    def info(self) -> PlanCacheInfo:
+        with self._lock:
+            return PlanCacheInfo(self.hits, self.misses, self.maxsize,
+                                 len(self._data), self.evictions)
+
+    def values(self) -> list:
+        with self._lock:
+            return list(self._data.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            dropped = list(self._data.values())
+            self._data.clear()
+        self._fire(dropped)
+
+    def discard(self, plans) -> int:
+        wanted = {id(p) for p in plans}
+        with self._lock:
+            keys = [k for k, v in self._data.items() if id(v) in wanted]
+            dropped = [self._data.pop(k) for k in keys]
+            self.evictions += len(dropped)
+        self._fire(dropped)
+        return len(dropped)
+
+    def resize(self, maxsize: Optional[int]) -> None:
+        with self._lock:
+            self.maxsize = maxsize
+            dropped = self._shrink_locked()
+        self._fire(dropped)
+
+
+_PLAN_CACHE = _PlanLRU(_env_cache_maxsize())
+
+
+def add_plan_evict_hook(fn: Callable) -> None:
+    """Register ``fn(plan)`` to run whenever a plan leaves the cache."""
+    _PLAN_CACHE.add_evict_hook(fn)
+
+
+def add_plan_build_hook(fn: Callable) -> None:
+    """Register ``fn(plan)`` to run whenever a plan is built (a miss)."""
+    _PLAN_CACHE.add_build_hook(fn)
+
+
+def set_plan_cache_maxsize(maxsize: Optional[int]) -> None:
+    """Re-bound the plan cache (None or <= 0 => unbounded)."""
+    if maxsize is not None and maxsize <= 0:
+        maxsize = None
+    _PLAN_CACHE.resize(maxsize)
+
+
+def _build_plan(shape: tuple, dtype_name_: str, method: str,
+                strip_rows: Optional[int], m_block: Optional[int],
+                batch_impl: str, block_rows: Optional[int],
+                block_batch: Optional[int]) -> RadonPlan:
+    geom = G.normalize_geometry(shape)
+    dtype = as_dtype(dtype_name_)
+    requested = method
+    if method == "auto":
+        method = select_backend(geom.prime, dtype, batch=geom.batch)
+    be = get_backend(method)
+    if not be.supports_dtype(dtype):
+        raise ValueError(
+            f"backend {be.name!r} does not support dtype {dtype_name_} "
+            f"(kinds: {be.dtype_kinds})")
+    if batch_impl not in ("auto", "map", "vmap"):
+        raise ValueError(f"batch_impl must be auto|map|vmap: {batch_impl!r}")
+    itemsize = accum_dtype_for(dtype, geom.prime).itemsize
+    th, tm = resolve_blocks(geom.prime, itemsize, strip_rows, m_block,
+                            block_rows=block_rows)
+    if be.needs_strip_rows or be.takes_m_block:
+        strip_rows = th
+        m_block = tm if be.takes_m_block else None
+    return RadonPlan(geometry=geom, method=be.name,
+                     requested_method=requested, strip_rows=strip_rows,
+                     m_block=m_block, batch_impl=batch_impl,
+                     block_rows=block_rows, block_batch=block_batch,
+                     dtype_name=dtype_name(dtype))
+
+
+def get_plan(shape, dtype, method: str = "auto", *,
+             strip_rows: Optional[int] = None,
+             m_block: Optional[int] = None,
+             batch_impl: str = "auto",
+             block_rows: Optional[int] = None,
+             stream_rows: Optional[int] = None,
+             block_batch: Optional[int] = None,
+             mesh=None) -> RadonPlan:
+    """Cached :class:`RadonPlan` for an input shape/dtype and knobs.
+
+    ``stream_rows`` and ``mesh`` are accepted for the reference's
+    signature and raise ``NotImplementedError`` (not ported yet)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+    if stream_rows is not None:
+        raise NotImplementedError(STREAM_ROWS_TODO)
+    shape = tuple(int(s) for s in shape)
+    key = (shape, dtype_name(as_dtype(dtype)), method,
+           None if strip_rows is None else int(strip_rows),
+           None if m_block is None else int(m_block), batch_impl,
+           None if block_rows is None else int(block_rows),
+           None if block_batch is None else int(block_batch))
+    return _PLAN_CACHE.get_or_build(key, lambda: _build_plan(*key))
+
+
+def plan_from_description(desc: dict) -> RadonPlan:
+    """The port's plan for a reference ``RadonPlan.describe()`` dict.
+
+    ``plan_from_description(d).describe() == d`` except that ``method``
+    reads ``cuda`` where ``d`` says ``pallas``."""
+    plan = get_plan(desc["image_shape"], desc["dtype"],
+                    desc["requested_method"],
+                    strip_rows=desc.get("strip_rows"),
+                    m_block=desc.get("m_block"),
+                    block_rows=desc.get("block_rows"),
+                    stream_rows=desc.get("stream_rows"),
+                    block_batch=desc.get("block_batch"),
+                    mesh=desc.get("mesh"))
+    want = _canonical_method(desc["method"])
+    if plan.method != want:
+        raise ValueError(f"description resolved to {desc['method']!r}, the "
+                         f"port resolves {desc['requested_method']!r} to "
+                         f"{plan.method!r}")
+    return plan
+
+
+def plan_cache_info() -> PlanCacheInfo:
+    """(hits, misses, maxsize, currsize, evictions) of the plan cache."""
+    return _PLAN_CACHE.info()
+
+
+def plan_cache_entries() -> list:
+    """``describe()`` dicts for every live cached plan, LRU-oldest first."""
+    return [plan.describe() for plan in _PLAN_CACHE.values()]
+
+
+def plan_cache_clear() -> None:
+    _PLAN_CACHE.clear()
+
+
+def plan_cache_discard(plans) -> int:
+    """Evict exactly the given plans, firing the evict hooks."""
+    return _PLAN_CACHE.discard(plans)
+
+
+def dispatch_skew_sum(g: torch.Tensor, sign: int, method: str = "horner",
+                      strip_rows: Optional[int] = None,
+                      m_block: Optional[int] = None,
+                      mesh=None) -> torch.Tensor:
+    """Registry-routed skew-sum primitive (prime-domain input)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+    n = g.shape[-1]
+    if method == "auto":
+        method = select_backend(n, g.dtype)
+    be = get_backend(method)
+    if be.needs_strip_rows and strip_rows is None:
+        itemsize = accum_dtype_for(g.dtype, n).itemsize
+        strip_rows = resolve_blocks(n, itemsize, None, None)[0]
+    return be.skew_sum(g, sign, strip_rows=strip_rows, m_block=m_block)

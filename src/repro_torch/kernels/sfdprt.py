@@ -1,0 +1,242 @@
+"""K1, the fused batched SFDPRT kernel: its launcher and its plain version.
+
+The port of the transform half of :mod:`repro.kernels.sfdprt`.  One
+kernel (``csrc/sfdprt.cu``, CUDA C++ for ``sm_90a``) replaces the TPU
+kernel ``repro/kernels/sfdprt.py:_sfdprt_kernel`` in its three modes:
+
+* ``core``    -- the bare skew-sum
+  ``out[b, m, d] = sum_i g[b, i, <d + sign*m*(row_offset + i)>_N]``,
+* ``forward`` -- sign +1 plus the row-sum row R(N, d) = sum_j f[b, d, j],
+* ``inverse`` -- sign -1 over r[:N] plus the fused epilogue
+  ``floor((Z[i, j] + corr[i]) / N)``, ``corr[i] = R(N, i) - S``; the
+  correction is computed here in torch before the launch, as the
+  reference computes it outside its kernel.
+
+:func:`sfdprt` is the wrapper: on a CUDA tensor it launches the kernel
+or raises (no fallback); on a CPU tensor it runs :func:`sfdprt_plain`,
+the direct, chunked-over-directions gather-and-sum of the same modes,
+which is also what ``chip_smoke.py`` holds the kernel against on the
+card.  ``strip_rows`` and ``m_block`` are the kernel's tiles (the rows
+staged per step -- capped by the shared memory a block holds -- and the
+directions per thread block); they change no integer result.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.dprt import accum_dtype_for
+from . import _build
+
+__all__ = ["sfdprt", "sfdprt_plain", "skew_sum_raw", "dprt_raw",
+           "idprt_raw", "isfdprt_core", "smem_tile_rows", "MODE_LAUNCHES",
+           "reset_launch_counts"]
+
+#: kernel launches since the last reset (all modes); MODE_LAUNCHES splits
+#: the same count by mode.  Only :func:`sfdprt` adds to them, once per
+#: launch of the CUDA kernel.
+LAUNCHES = 0
+MODE_LAUNCHES = {"core": 0, "forward": 0, "inverse": 0}
+
+_MODES = {"core": 0, "forward": 1, "inverse": 2}
+_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+           torch.float64: 3}
+
+#: shared memory one block may stage: two blocks fit on an H100 SM
+#: (228 KB of shared memory per SM, 1 KB of it reserved per block)
+SMEM_BUDGET = 113 * 1024
+
+#: elements one chunk of the plain version gathers at a time
+_PLAIN_CHUNK = 1 << 25
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for mode in MODE_LAUNCHES:
+        MODE_LAUNCHES[mode] = 0
+
+
+def smem_tile_rows(rows: int, n: int, itemsize: int, strip_rows: int) -> int:
+    """Rows the kernel stages per step: at most ``strip_rows``, at most
+    ``rows``, and no more than fit in :data:`SMEM_BUDGET`."""
+    fit = SMEM_BUDGET // (n * itemsize)
+    if fit < 1:
+        raise ValueError(
+            f"one row of N={n} {itemsize}-byte values does not fit the "
+            f"kernel's {SMEM_BUDGET}-byte shared-memory tile")
+    return max(1, min(int(strip_rows), int(rows), fit))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("sfdprt")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sfdprt_launch.argtypes = [i32, vp, i64, vp, vp, i32, i32, i32, i32,
+                                  i32, i32, i32, i32, i64, vp]
+    lib.sfdprt_launch.restype = i32
+    lib.sfdprt_error_string.argtypes = [i32]
+    lib.sfdprt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(g: torch.Tensor, sign: int, mode: str, corr, strip_rows: int,
+           m_block: int) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}: {mode!r}")
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, got {sign}")
+    if (mode == "forward" and sign != 1) or (mode == "inverse"
+                                             and sign != -1):
+        raise ValueError(f"mode {mode!r} fixes sign to "
+                         f"{1 if mode == 'forward' else -1}")
+    if g.ndim != 3 or g.shape[1] < 1 or g.shape[1] > g.shape[2]:
+        raise ValueError(f"operand must be (B, rows <= N, N), got "
+                         f"{tuple(g.shape)}")
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"operand must be in an accumulator dtype "
+                        f"{tuple(_DTYPES)}, got {g.dtype}")
+    if g.stride(2) != 1 or g.stride(1) != g.shape[2]:
+        raise ValueError("operand rows must be contiguous (stride (…, N, 1))")
+    if int(strip_rows) < 1 or int(m_block) < 1:
+        raise ValueError(f"strip_rows/m_block must be >= 1, got "
+                         f"{strip_rows}/{m_block}")
+    if mode == "inverse":
+        b, _, n = g.shape
+        if (corr is None or tuple(corr.shape) != (b, n)
+                or corr.dtype != g.dtype or corr.device != g.device
+                or not corr.is_contiguous()):
+            raise ValueError(f"inverse mode needs a contiguous (B, N) = "
+                             f"({b}, {n}) {g.dtype} corr on {g.device}")
+
+
+def sfdprt(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
+           m_block: int, corr: torch.Tensor | None = None,
+           row_offset: int = 0) -> torch.Tensor:
+    """Run K1 over ``g`` (B, rows, N), already in the accumulator dtype.
+
+    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise.  A
+    CUDA operand launches the kernel on the current stream (raising if
+    the launch is refused); a CPU operand takes :func:`sfdprt_plain`.
+    """
+    global LAUNCHES
+    _check(g, sign, mode, corr, strip_rows, m_block)
+    if g.device.type == "cpu":
+        return sfdprt_plain(g, sign=sign, mode=mode, corr=corr,
+                            row_offset=row_offset)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"K1 runs on CUDA or CPU tensors, not {g.device}")
+    b, rows, n = g.shape
+    out_rows = n + 1 if mode == "forward" else n
+    out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
+    if b == 0:
+        return out
+    tile = smem_tile_rows(rows, n, g.element_size(), strip_rows)
+    lib = _lib()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.sfdprt_launch(
+        _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
+        None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
+        n, out_rows, int(m_block), tile, int(sign), _MODES[mode],
+        int(row_offset), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sfdprt kernel launch failed ({mode}, B={b}, rows={rows}, "
+            f"N={n}, m_block={m_block}, tile_rows={tile}): "
+            f"{lib.sfdprt_error_string(err).decode()}")
+    LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
+    return out
+
+
+def sfdprt_plain(g: torch.Tensor, *, sign: int, mode: str,
+                 corr: torch.Tensor | None = None,
+                 row_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K1 (any device): for each chunk of
+    directions, gather ``g[b, i, <d + sign*m*(row_offset + i)>_N]`` and
+    sum over i; then the mode's row-sum row or inverse epilogue."""
+    b, rows, n = g.shape
+    dev = g.device
+    out_rows = n + 1 if mode == "forward" else n
+    out = torch.zeros((b, out_rows, n), dtype=g.dtype, device=dev)
+    flat = g.reshape(b, rows * n)
+    i = torch.arange(rows, device=dev, dtype=torch.int64)
+    d = torch.arange(n, device=dev, dtype=torch.int64)
+    glob = i + int(row_offset)
+    chunk = max(1, _PLAIN_CHUNK // max(1, b * rows * n))
+    for m0 in range(0, n, chunk):
+        ms = torch.arange(m0, min(m0 + chunk, n), device=dev,
+                          dtype=torch.int64)
+        idx = torch.remainder(d[None, None, :] + sign * ms[:, None, None]
+                              * glob[None, :, None], n) + (i * n)[None, :,
+                                                                   None]
+        vals = flat[:, idx.reshape(-1)].reshape(b, len(ms), rows, n)
+        out[:, m0:m0 + len(ms)] = vals.sum(2, dtype=g.dtype)
+    if mode == "forward":
+        keep = (glob >= 0) & (glob < n)
+        out[:, n, glob[keep]] = g.sum(2, dtype=g.dtype)[:, keep]
+    elif mode == "inverse":
+        total = out + corr[:, :, None]
+        if g.dtype.is_floating_point:
+            out = total / n
+        else:
+            out = torch.div(total, n, rounding_mode="floor")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the counterparts of repro.kernels.sfdprt.*_pallas_raw
+# ---------------------------------------------------------------------------
+def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows are contiguous (the kernel takes any
+    batch stride, e.g. ``r[:, :N]``), else a contiguous copy."""
+    if x.stride(-1) == 1 and x.stride(-2) == x.shape[-1]:
+        return x
+    return x.contiguous()
+
+
+def skew_sum_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
+                 m_block: int = 8, row_offset=None) -> torch.Tensor:
+    """Bare skew-sum via K1 (core mode): (rows, N) or (B, rows, N), N
+    prime, to the same rank with N direction rows in the accumulator
+    dtype; ``rows < N`` with a ``row_offset`` gives the partial of a
+    row strip aligned to global rows."""
+    single = g.ndim == 2
+    gb = g[None] if single else g
+    n = gb.shape[-1]
+    ga = _rows_contiguous(gb.to(accum_dtype_for(g.dtype, n)))
+    out = sfdprt(ga, sign=sign, mode="core", strip_rows=strip_rows,
+                 m_block=m_block, row_offset=row_offset or 0)
+    return out[0] if single else out
+
+
+def dprt_raw(f: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
+             row_offset=None) -> torch.Tensor:
+    """Fused batched forward DPRT: (B, N, N) -> (B, N+1, N) in one launch,
+    the R(N, d) row produced in-kernel.  With ``rows < N`` and a
+    ``row_offset`` this is the partial forward of a row strip."""
+    n = f.shape[-1]
+    fa = _rows_contiguous(f.to(accum_dtype_for(f.dtype, n)))
+    return sfdprt(fa, sign=1, mode="forward", strip_rows=strip_rows,
+                  m_block=m_block, row_offset=row_offset or 0)
+
+
+def idprt_raw(r: torch.Tensor, strip_rows: int = 16,
+              m_block: int = 8) -> torch.Tensor:
+    """Fused batched inverse DPRT: (B, N+1, N) -> (B, N, N) in one
+    launch; the -S + R(N, i) correction and the floor divide by N run
+    in-kernel on the last tile."""
+    n = r.shape[-1]
+    acc = accum_dtype_for(r.dtype, n)
+    ra = _rows_contiguous(r.to(acc))
+    corr = (ra[:, n, :] - ra[:, 0, :].sum(1, keepdim=True, dtype=acc))
+    return sfdprt(ra[:, :n, :], sign=-1, mode="inverse",
+                  strip_rows=strip_rows, m_block=m_block,
+                  corr=corr.contiguous())
+
+
+# The inverse core (iSFDPRT_core) is the skew-sum with circular right
+# shifts, sign -1: the bare, uncorrected Z.
+isfdprt_core = functools.partial(skew_sum_raw, sign=-1)

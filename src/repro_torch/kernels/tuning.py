@@ -1,0 +1,111 @@
+"""(N -> strip_rows H, m_block M) block resolution for the SFDPRT kernel.
+
+The port of the transform half of :mod:`repro.kernels.tuning`.  The
+table and the heuristic are copied unchanged so that every knob
+resolves to the same ``(strip_rows, m_block)`` as the reference, and a
+plan's ``describe()`` reads the same in both packages.
+
+**These rows are not H100 measurements.**  They were chosen for the TPU
+kernel (CPU-interpret timings and VMEM budgets).  On Hopper ``m_block``
+is the number of directions one thread block owns, and ``strip_rows``
+caps the rows staged through shared memory per step (the kernel further
+caps it by the shared memory a block can hold; integer results do not
+depend on either).  Rows measured on the card replace these in a later
+change.
+"""
+from __future__ import annotations
+
+import math
+import warnings
+
+__all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
+           "wasted_direction_rows"]
+
+# N values already warned about (once per process per N).
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_off_table(n: int, table: dict, warned: set, kind: str) -> None:
+    """Warn once when N falls off the top of the table."""
+    top = max(table)
+    if n > top and n not in warned:
+        warned.add(n)
+        warnings.warn(
+            f"N={n} is beyond the largest {kind} tuning row (N={top}); "
+            f"using the heuristic block-shape fallback. Pass "
+            f"strip_rows/m_block explicitly if performance matters at "
+            f"this size.", stacklevel=3)
+
+
+# N: (strip_rows H, m_block M) -- the reference's table, row for row.
+PALLAS_TUNE = {
+    2: (2, 8),
+    3: (3, 8),
+    5: (5, 8),
+    7: (7, 8),
+    11: (11, 8),
+    13: (13, 8),
+    17: (17, 8),
+    31: (31, 8),
+    61: (61, 16),
+    127: (127, 16),
+    251: (251, 32),
+    509: (256, 32),
+    1021: (256, 64),
+    2053: (256, 64),
+    4099: (256, 64),
+}
+
+
+def pallas_block_spec(n: int, itemsize: int = 4) -> tuple[int, int]:
+    """Table (strip_rows, m_block) for prime N; the reference's
+    heuristic off-table (``itemsize`` is the accumulator's bytes)."""
+    if n in PALLAS_TUNE:
+        return PALLAS_TUNE[n]
+    _warn_off_table(n, PALLAS_TUNE, _FALLBACK_WARNED, "pallas")
+    if n <= 32:
+        return n, 8
+    h = min(n, 128)
+    m_block = 64 if n >= 128 else 16
+    n_pad = ((n + 127) // 128) * 128
+    budget = 2 * 1024 * 1024
+    while (h + 2 * m_block) * n_pad * itemsize > budget:
+        if h > 8:
+            h //= 2
+        elif m_block > 8:
+            m_block //= 2
+        else:
+            break
+    return max(h, 1), m_block
+
+
+def resolve_blocks(n: int, itemsize: int = 4,
+                   strip_rows=None, m_block=None, block_rows=None,
+                   stream_rows=None) -> tuple[int, int]:
+    """Fill missing (strip_rows, m_block) from the table, validate given.
+
+    ``block_rows`` (the scan-of-launches fallback) and ``stream_rows``
+    (the streamed kernel) both partition the image into row strips;
+    asking for both is ambiguous and rejected.
+    """
+    if block_rows is not None and stream_rows is not None:
+        raise ValueError(
+            f"block_rows={block_rows} and stream_rows={stream_rows} are "
+            "mutually exclusive: block_rows scans separate kernel "
+            "launches over row strips (the staged fallback), stream_rows "
+            "streams strips through ONE fused launch. Pick one.")
+    if stream_rows is not None and int(stream_rows) < 1:
+        raise ValueError(f"stream_rows must be >= 1, got {stream_rows}")
+    th, tm = pallas_block_spec(n, itemsize)
+    h = th if strip_rows is None else int(strip_rows)
+    mb = tm if m_block is None else int(m_block)
+    if h < 1 or mb < 1:
+        raise ValueError(f"strip_rows/m_block must be >= 1, got {h}/{mb}")
+    return h, mb
+
+
+def wasted_direction_rows(n: int, m_block: int, forward: bool = True) -> int:
+    """Rows of the final m-block past the last output row: the kernel
+    neither computes nor writes them."""
+    rows = n + 1 if forward else n
+    return math.ceil(rows / m_block) * m_block - rows

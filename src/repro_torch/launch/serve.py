@@ -1,0 +1,172 @@
+"""Serving launcher of the port: the DPRT image service (``--mode radon``).
+
+    python -m repro_torch.launch.serve --mode radon [--smoke] [--device cuda]
+
+The port of :mod:`repro.launch.serve`'s radon mode: a batch of phantom
+images in, the exact forward DPRT out, then the exact inverse, timed
+over ``--iters`` round trips and checked bit-exact.  The default
+configuration is ``configs/radon_251.py`` (N = 251; ``--smoke`` N = 31,
+batch 8).  ``--method`` resolves through the backend registry (``auto``
+is the hand-written kernel, ``pallas`` an alias of it); ``--n`` accepts
+any size (non-prime sizes are zero-embedded and cropped back).
+``--warmup`` builds the kernels and makes one warm call per datapath
+(``op.compile()``) before the timing loop; the loop runs inside a
+``retrace_guard(max_traces=0)``: no plan or kernel is built in steady
+state.
+
+Runs on the card (``--device cuda``, the default) and raises when there
+is none; ``--device cpu`` runs the kernels' plain versions.  Not ported
+yet, and refused with the ROADMAP item that ports them: ``--mode
+lm/service/pool``, ``--stream-rows`` and ``--mesh-shape``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import radon
+from ..configs.radon_251 import config as radon_config, \
+    smoke_config as radon_smoke
+from ..core.plan import METHOD_ALIASES, available_backends, \
+    backend_capabilities
+from ..data.synthetic import radon_images
+from .service import format_latency, latency_summary
+
+#: flags of the reference's serve CLI that the port refuses for now
+NOT_PORTED = {
+    "--mode lm": "ROADMAP Queue 1 item 10 (LM substrate)",
+    "--mode service": "ROADMAP Queue 1 item 8 (serving tier)",
+    "--mode pool": "ROADMAP Queue 1 item 8 (serving tier)",
+    "--stream-rows": "ROADMAP Queue 1 item 7 (giant-N streaming, K4/K5)",
+    "--mesh-shape": "ROADMAP Queue 1 item 9 (mesh path)",
+}
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to serve on; a CUDA device that is not there raises
+    (the service never carries on on the CPU by itself)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is available (pass "
+            f"--device cpu to run the kernels' plain versions)")
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_radon(args) -> torch.Tensor:
+    rcfg = radon_smoke() if args.smoke else radon_config()
+    device = resolve_device(args.device)
+    n = args.n or rcfg.n                       # any size; operator embeds
+    imgs = torch.from_numpy(radon_images(n, args.batch or rcfg.batch,
+                                         kind="phantom")).to(device)
+    op = radon.DPRT(tuple(imgs.shape), imgs.dtype, args.method,
+                    strip_rows=args.strip_rows, m_block=args.m_block,
+                    batch_impl=args.batch_impl,
+                    block_batch=args.block_batch)
+    inv = op.inverse
+    if args.warmup:
+        tw = time.perf_counter()
+        op.compile(device)
+        inv.compile(device)
+        print(f"[serve-radon] warmup: built + warmed forward+inverse for "
+              f"{op.shape_in} in {1e3 * (time.perf_counter() - tw):.0f}ms")
+    else:
+        # warm both datapaths so the timed loop measures steady state
+        inv(op(imgs))
+        _sync(device)
+    iters = max(1, args.iters)
+    fwd_lat, inv_lat = [], []
+    with radon.retrace_guard(max_traces=0):
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            r = op(imgs)
+            _sync(device)
+            fwd_lat.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            back = inv(r)
+            _sync(device)
+            inv_lat.append(time.perf_counter() - t1)
+    exact = bool(torch.equal(back, imgs))      # operator crops the embedding
+    b = imgs.shape[0]
+    dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+    print(f"[serve-radon] N={n} (prime P={op.plan.geometry.prime}) batch={b} "
+          f"method={args.method}->{op.plan.method} device={dev_name}: "
+          f"round-trip exact={exact}, traces={op.trace_count}")
+    print("[serve-radon] forward "
+          + format_latency(latency_summary(fwd_lat),
+                           b * iters / sum(fwd_lat)))
+    print("[serve-radon] inverse "
+          + format_latency(latency_summary(inv_lat),
+                           b * iters / sum(inv_lat)))
+    if not exact:
+        raise RuntimeError("DPRT round trip must be bit-exact")
+    return r
+
+
+def list_backends():
+    cols = ("name", "priority", "batched_native", "needs_strip_rows",
+            "takes_m_block", "stream", "mesh_aware", "dtypes", "note")
+    for row in backend_capabilities():
+        print("  ".join(f"{c}={row[c]}" for c in cols))
+
+
+def main(argv=None):
+    methods = ["auto"] + list(available_backends()) + list(METHOD_ALIASES)
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--mode", choices=["lm", "radon", "service", "pool"],
+                    default="radon")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the smoke config (N=31, batch 8)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--method", default="auto", choices=methods,
+                    help="DPRT strategy (auto = registry pick: the cuda "
+                         "kernel backend; pallas = alias of cuda)")
+    ap.add_argument("--n", type=int, default=None,
+                    help="image side; non-prime/any size is embedded into "
+                         "the next prime (default: config N)")
+    ap.add_argument("--strip-rows", type=int, default=None,
+                    help="strip height H (strips/cuda; default: table)")
+    ap.add_argument("--m-block", type=int, default=None,
+                    help="direction block M (cuda; default: table)")
+    ap.add_argument("--stream-rows", type=int, default=None,
+                    help="not ported yet: " + NOT_PORTED["--stream-rows"])
+    ap.add_argument("--batch-impl", default="auto",
+                    choices=["auto", "map", "vmap"],
+                    help="batching for non-batched-native backends")
+    ap.add_argument("--block-batch", type=int, default=None,
+                    help="run the batch through the backend in chunks of "
+                         "this many images (bounded memory)")
+    ap.add_argument("--mesh-shape", default=None, metavar="D[,M]",
+                    help="not ported yet: " + NOT_PORTED["--mesh-shape"])
+    ap.add_argument("--warmup", action="store_true",
+                    help="build the kernels and warm both datapaths "
+                         "(op.compile()) before the timing loop")
+    ap.add_argument("--iters", type=int, default=5,
+                    help="timing-loop samples per datapath")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; cpu runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--list-backends", action="store_true",
+                    help="print the backend capability table and exit")
+    args = ap.parse_args(argv)
+    if args.list_backends:
+        return list_backends()
+    for flag, given in ((f"--mode {args.mode}", args.mode != "radon"),
+                        ("--stream-rows", args.stream_rows is not None),
+                        ("--mesh-shape", args.mesh_shape is not None)):
+        if given:
+            raise SystemExit(f"{flag} is not ported to repro_torch yet: "
+                             f"{NOT_PORTED[flag]}")
+    return serve_radon(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,10 @@ def pytest_configure(config):
         "markers",
         "slow: forced-host subprocess tests (sharded meshes, int64-x64); "
         "deselect with -m 'not slow' for the quick tier")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); "
+        "skips without one")
 
 
 def run_subprocess(code: str, devices: int = 8, timeout: int = 600,
