@@ -4,13 +4,22 @@
     python3 chip_smoke.py                 # on a machine with one CUDA card
 
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
-csrc`` with nvcc, holds every kernel of the main path against its plain
-PyTorch version on the card, drives the main path (the exact forward
-and inverse DPRT of the ``radon_251`` configuration: 256 phantom images
-of 251 x 251, int32) through ``repro_torch.radon.DPRT`` and through
-``python -m repro_torch.launch.serve --mode radon``, checks that it ran
-through the kernel (launch counts) without rebuilding anything in the
-timed loop, and times each kernel mode against its bound.
+csrc`` with nvcc (one nvcc per library, all started together), holds
+every kernel against its plain PyTorch version on the card, and drives
+the two main paths of the ``radon_251`` configuration (256 phantom
+images of 251 x 251, int32), each with the launch counts set to 0 just
+before it and read just after:
+
+1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
+   and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
+2. the fused projection-domain pipeline (kernel K2): ``radon.Conv2D``
+   with a 3 x 3 ones kernel (bit-identical to the staged K1 / 1-D conv /
+   K1 composition and to the direct oracle), the fused
+   ``op.inverse @ ProjectionFilter(w) @ op``, the DPRT-based DFT and a
+   float32 gradient check of ``Conv2D``.
+
+It checks that each path ran through its kernels without rebuilding
+anything in the timed loop, and times every kernel against its bound.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
@@ -21,6 +30,7 @@ holds this script without the port's sources.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -37,8 +47,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 16.75e12
 
 SERVE_ITERS = 5
+CONV_ITERS = 3
 TIMING_REPS = 20
 F32_RTOL = 1e-5
+#: K2 float tolerance, relative to the largest per-direction output
+#: (the terms the inverse sums; the output itself can be far smaller
+#: after the -S correction cancels): float32 1e-5, float64 1e-12
+PIPE_F32_REL = 1e-5
+PIPE_F64_REL = 1e-12
+#: DPRT-based DFT vs torch.fft.fft2 (both float32 FFTs of length N),
+#: relative to the spectrum's peak
+DFT_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -76,9 +95,10 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_close(name: str, got, want, n: int) -> float:
-    """Bit-exact for integers; float32 within rtol 1e-5, atol 1e-4*N
-    (summation order differs); float64 within 1e-12 relative."""
+def check_close(name: str, got, want, n: int, tol=None) -> float:
+    """Bit-exact for integers; floats within ``tol`` when given, else
+    float32 within rtol 1e-5, atol 1e-4*N (summation order differs) and
+    float64 within 1e-12 relative."""
     import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: {tuple(got.shape)} {got.dtype} vs "
@@ -89,8 +109,9 @@ def check_close(name: str, got, want, n: int) -> float:
         if got.numel() else 0.0
     if got.dtype.is_floating_point:
         scale = float(want.double().abs().max()) if want.numel() else 0.0
-        tol = (1e-12 * max(scale, 1.0) if got.dtype == torch.float64
-               else 1e-4 * n + F32_RTOL * scale)
+        if tol is None:
+            tol = (1e-12 * max(scale, 1.0) if got.dtype == torch.float64
+                   else 1e-4 * n + F32_RTOL * scale)
         if err > tol:
             fail(f"{name}: max |err| {err} > {tol}")
     elif not torch.equal(got, want):
@@ -174,6 +195,102 @@ def kernel_phase() -> dict:
     return worst
 
 
+def pipeline_tol(got, aux_want):
+    """K2's float tolerance: relative to the largest per-direction output
+    the inverse sums (aux holds two of its rows), for the dtype."""
+    import torch
+    if not got.dtype.is_floating_point:
+        return None
+    scale = max(float(aux_want.double().abs().max()), 1.0)
+    return (PIPE_F64_REL if got.dtype == torch.float64
+            else PIPE_F32_REL) * scale
+
+
+def pipeline_kernel_phase() -> dict:
+    """K2 against its plain version: ops none/mul/conv, operand forms
+    image and proj, shared and batched operands, awkward m_block and
+    group, batch 1 and 3, int32/int64 bit-exact, float32/float64 within
+    tolerance, inputs with negatives (the mul case is no transform, so
+    the final floor divide sees negative numerators) and int32 values
+    whose sums and products overflow."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.sfdprt import sfdprt_plain
+    from repro_torch.kernels.tuning import pipeline_block_spec
+
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
+    worst = {}
+    cases = 0
+
+    def run(label, f, w, op, form, mb, grp):
+        nonlocal cases
+        got, got_aux = P.pipeline_raw(f, w, op=op, operand_form=form,
+                                      m_block=mb, group=grp)
+        torch.cuda.synchronize()
+        want, want_aux = P.pipeline_plain(f, w, op=op, operand_form=form)
+        torch.cuda.synchronize()
+        tol = pipeline_tol(got, want_aux)
+        err = max(check_close(f"K2 {label} out", got, want, f.shape[-1], tol),
+                  check_close(f"K2 {label} aux", got_aux, want_aux,
+                              f.shape[-1], tol))
+        worst[op] = max(worst.get(op, 0.0), err)
+        cases += 1
+
+    for n in (5, 7, 13, 31, 61, 251):
+        blocks = {pipeline_block_spec(n)}
+        blocks |= ({(1, 1), (3, 2), (8, 5), (n + 5, 4)} if n <= 31
+                   else {(8, 4), (3, 1)})
+        for mb, grp in sorted(blocks):
+            for b in (1, 3):
+                for dt in dtypes:
+                    def make(shape, lo=-200, hi=256):
+                        if dt.is_floating_point:
+                            a = rng.random(shape)
+                        else:
+                            a = rng.integers(lo, hi, shape)
+                        return torch.as_tensor(a).to(dt).to(dev)
+
+                    f = make((b, n, n))
+                    g1, gb = make((1, n, n), -9, 10), make((b, n, n), -9, 10)
+                    runs = [
+                        ("none", None, "none", "proj"),
+                        ("mul shared", make((1, n + 1, n), -9, 10), "mul",
+                         "proj"),
+                        ("mul batched", make((b, n + 1, n), -9, 10), "mul",
+                         "proj"),
+                        ("conv image shared", g1, "conv", "image"),
+                        ("conv image batched", gb, "conv", "image"),
+                        ("conv proj shared",
+                         sfdprt_plain(g1, sign=1, mode="forward"), "conv",
+                         "proj"),
+                        ("conv proj batched",
+                         sfdprt_plain(gb, sign=1, mode="forward"), "conv",
+                         "proj"),
+                    ]
+                    for label, w, op, form in runs:
+                        run(f"{label} N={n} M={mb} G={grp} B={b} {dt}", f,
+                            w, op, form, mb, grp)
+    # int32 overflow: forward sums, conv products and inverse sums wrap
+    for n in (13, 251):
+        big = 2 ** 28
+        f = torch.as_tensor(rng.integers(-big, big, (3, n, n)),
+                            dtype=torch.int32).to(dev)
+        w = torch.as_tensor(rng.integers(-big, big, (3, n + 1, n)),
+                            dtype=torch.int32).to(dev)
+        g = torch.as_tensor(rng.integers(-big, big, (1, n, n)),
+                            dtype=torch.int32).to(dev)
+        for op, opd, form in (("none", None, "proj"), ("mul", w, "proj"),
+                              ("conv", g, "image"), ("conv", w, "proj")):
+            run(f"overflow {op} {form} N={n}", f, opd, op, form,
+                *pipeline_block_spec(n))
+    log(f"pipeline kernel phase: {cases} cases agree with the plain "
+        f"version (max |err| by op: {worst})")
+    return worst
+
+
 def main_path_phase() -> dict:
     """The radon_251 main path on the card, through the operator API and
     the serve CLI; returns the launches per mode of that run."""
@@ -184,6 +301,7 @@ def main_path_phase() -> dict:
     from repro_torch.core.dprt import dprt_oracle_np
     from repro_torch.core.plan import _adjoint_epilogue
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
     from repro_torch.kernels import sfdprt as S
     from repro_torch.launch import serve
 
@@ -201,6 +319,7 @@ def main_path_phase() -> dict:
 
     kernel_builds = radon.trace_count(kind="kernel")
     S.reset_launch_counts()
+    P.reset_launch_counts()
     # -- the operator API: forward, inverse, adjoint, autograd ----------
     op = radon.DPRT(tuple(imgs.shape), torch.int32)
     if op.plan.method != "cuda":
@@ -219,6 +338,8 @@ def main_path_phase() -> dict:
                          "--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(S.MODE_LAUNCHES)
+    if any(P.OP_LAUNCHES.values()):
+        fail(f"the DPRT path launched K2 {dict(P.OP_LAUNCHES)}")
 
     want = {"forward": 2 + 1 + SERVE_ITERS, "inverse": 1 + 1 + SERVE_ITERS,
             "core": 3}
@@ -250,6 +371,233 @@ def main_path_phase() -> dict:
         f"float32 grad == adjoint (max |err| {err:.3g}), serve exact with "
         f"zero rebuilds in its timed loop")
     return launches
+
+
+def pipeline_main_path_phase() -> dict:
+    """The radon_251 pipeline path on the card: Conv2D (3 x 3 ones kernel)
+    through K2, the fused filter composite, the DPRT-based DFT and a
+    float32 gradient check; returns the launches of that run."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.core.conv import circ_conv1d_exact, circ_conv2d_direct
+    from repro_torch.core.dft import dft2_via_dprt_batched
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.radon import flip_image
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    kern = torch.ones((3, 3), dtype=torch.int32, device=dev)
+    w = torch.from_numpy(rng.integers(-7, 8, (n + 1, n))
+                         .astype(np.int32)).to(dev)
+    xs = torch.from_numpy(rng.random((4, 13, 13), dtype=np.float32)).to(dev)
+    us = torch.from_numpy(rng.random((4, 13, 13), dtype=np.float32)).to(dev)
+    ks = torch.from_numpy(rng.random((3, 3), dtype=np.float32)).to(dev)
+
+    conv = radon.Conv2D(tuple(imgs.shape), kern)
+    op = radon.DPRT(tuple(imgs.shape), torch.int32)
+    filt = op.inverse @ radon.ProjectionFilter(w) @ op
+    if conv.plan.method != "cuda" or not conv.describe()["pipeline"]:
+        fail(f"Conv2D resolved to {conv.plan.method!r} without the pipeline")
+    if len(filt.ops) != 1 or not isinstance(
+            filt.ops[0], radon.FusedProjectionPipeline):
+        fail(f"inverse @ filter @ forward was not fused: {filt!r}")
+    conv(imgs)                  # warm: plans, appliers and kernels built
+    torch.cuda.synchronize()
+
+    kernel_builds = radon.trace_count(kind="kernel")
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    # -- Conv2D: the timed loop must build nothing ------------------------
+    walls = []
+    with radon.retrace_guard(max_traces=0):
+        for _ in range(CONV_ITERS):
+            t0 = time.perf_counter()
+            out = conv(imgs)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    conv_launches = (dict(P.OP_LAUNCHES), dict(S.MODE_LAUNCHES))
+    # -- the fused filter, the plain round trip, the DFT --------------------
+    filtered = filt(imgs)
+    round_trip = conv.plan.pipeline(imgs, "none")
+    spectrum = dft2_via_dprt_batched(imgs)
+    # -- float32 gradients of Conv2D in the image and in the kernel --------
+    x = xs.clone().requires_grad_(True)
+    k = ks.clone().requires_grad_(True)
+    opg = radon.Conv2D(tuple(xs.shape), k, torch.float32)
+    (opg(x) * us).sum().backward()
+    with torch.no_grad():
+        grad_t = opg.T(us)
+    torch.cuda.synchronize()
+    launches = {"conv": P.OP_LAUNCHES["conv"], "mul": P.OP_LAUNCHES["mul"],
+                "none": P.OP_LAUNCHES["none"], "k1": dict(S.MODE_LAUNCHES)}
+
+    # one Conv2D call = one K1 forward of the kernel + one K2 conv call
+    want = ({"none": 0, "mul": 0, "conv": CONV_ITERS},
+            {"core": 0, "forward": CONV_ITERS, "inverse": 0})
+    if conv_launches != want:
+        fail(f"Conv2D launches {conv_launches}, expected {want}")
+    if launches["mul"] != 1 or launches["none"] != 1:
+        fail(f"pipeline launches {launches}: the fused filter and the "
+             f"round trip are one K2 call each")
+    # backward: K2 conv (image) + K1 core (kernel projections' transpose)
+    if launches["conv"] < CONV_ITERS + 3:
+        fail(f"the gradient check did not run through K2: {launches}")
+    if radon.trace_count(kind="kernel") != kernel_builds:
+        fail("the pipeline path rebuilt a kernel")
+    log(f"pipeline path: K2 launches by op {launches} (Conv2D: "
+        f"{conv_launches}); Conv2D host ms {[round(t, 3) for t in walls]}")
+
+    # -- checks (their own launches are not counted) -----------------------
+    if tuple(out.shape) != (b, n, n) or out.dtype != torch.int32:
+        fail(f"Conv2D gave {tuple(out.shape)} {out.dtype}")
+    rf = op(imgs)
+    rg = radon.DPRT((n, n), torch.int32)(conv.kernel)
+    staged = op.inverse(circ_conv1d_exact(rf, rg))
+    if not torch.equal(out, staged):
+        fail("Conv2D differs from the staged K1 / 1-D conv / K1 path")
+    for i in (0, b - 1):
+        if not torch.equal(out[i], circ_conv2d_direct(imgs[i],
+                                                      conv.kernel)):
+            fail(f"Conv2D image {i} differs from circ_conv2d_direct")
+    if not torch.equal(round_trip, imgs):
+        fail("plan.pipeline(f, 'none') is not f")
+    if not torch.equal(filtered, op.inverse(w * rf)):
+        fail("the fused filter differs from op.inverse(w * op(f))")
+    ref = torch.fft.fft2(imgs.float())
+    derr = float((spectrum - ref).abs().max())
+    dtol = DFT_REL * float(ref.abs().max())
+    if spectrum.shape != ref.shape or derr > dtol:
+        fail(f"DPRT-based DFT vs fft2: max |err| {derr} > {dtol}")
+    check_close("Conv2D image grad vs op.T", x.grad, grad_t, 13)
+    want_k = sum(circ_conv2d_direct(flip_image(xs[i]), us[i])
+                 for i in range(xs.shape[0]))[:3, :3]
+    check_close("Conv2D kernel grad vs correlation", k.grad, want_k, 13)
+    log(f"pipeline path: N={n} B={b} Conv2D bit-exact vs staged and "
+        f"direct, round trip exact, fused filter exact, DFT max |err| "
+        f"{derr:.3g} (tol {dtol:.3g}), float32 grads agree")
+    return launches
+
+
+def pipeline_timing_phase(launches: dict, worst: dict) -> list:
+    """K2 vs its plain version at the main path's shapes, per op."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.sfdprt import sfdprt_plain
+    from repro_torch.kernels.tuning import pipeline_block_spec
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    mb, grp = pipeline_block_spec(n)
+    eff_mb = {op: P.smem_blocks(n, 4, mb, op)[0]
+              for op in P.PIPELINE_OPS}
+    dev = torch.device("cuda")
+    f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    kern = torch.zeros((1, n, n), dtype=torch.int32, device=dev)
+    kern[:, :3, :3] = 1
+    rg = sfdprt_plain(kern, sign=1, mode="forward")
+    w = torch.from_numpy(np.random.default_rng(5).integers(
+        -7, 8, (1, n + 1, n)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    item = 4
+    fwd = b * n * n * n + b * n * n       # skew-sum adds + row sums
+    inv = b * n * n * n + 3 * b * n * n   # skew-sum adds + correction
+    io = item * (b * n * n + b * n * n + 2 * b * n)   # f, out, aux
+    cases = {
+        "conv": (rg, "proj", io + item * (n + 1) * n,
+                 fwd + b * (n + 1) * n * n + inv),
+        "mul": (w, "proj", io + item * (n + 1) * n,
+                fwd + b * (n + 1) * n + inv),
+        "none": (None, "proj", io, fwd + inv),
+    }
+    rows = []
+    for op, (opd, form, nbytes, ops) in cases.items():
+        k_ms = cuda_ms(lambda: P.pipeline_raw(f, opd, op=op,
+                                              operand_form=form,
+                                              m_block=mb, group=grp))
+        p_ms = cuda_ms(lambda: P.pipeline_plain(f, opd, op=op,
+                                                operand_form=form),
+                       reps=3, warm=1)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / INT32_ADDS_PER_S
+        rows.append({
+            "name": f"pipeline_kernel[{op}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pipeline.cu",
+            "replaces": "src/repro/kernels/sfdprt.py:853",
+            "launches": launches[op],
+            "max_abs_err": worst.get(op, 0.0),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no PyTorch call computes an exact integer circular
+            # convolution (or this fused round trip) on CUDA: integer
+            # matmul/conv are not implemented there
+            "library_ms": None,
+        })
+        log(f"timing pipeline {op}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({rows[-1]['bound_by']}; {ops:.4g} int32 ops; N={n} B={b} "
+            f"int32 m_block {mb} -> {eff_mb[op]} in shared memory)")
+    return rows
+
+
+def pipeline_profile_phase() -> None:
+    """Where one radon_251 Conv2D call's device time goes, by kernel
+    (torch.profiler over CONV_ITERS calls), and the device's busy share
+    of the host wall time around them."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import radon
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.data.synthetic import radon_images
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    dev = torch.device("cuda")
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    conv = radon.Conv2D(tuple(imgs.shape),
+                        torch.ones((3, 3), dtype=torch.int32, device=dev))
+    conv(imgs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CONV_ITERS):
+            conv(imgs)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_call = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            # "void (anonymous namespace)::pipeline_kernel<int>(int const*,
+            # ...)" -> "pipeline_kernel<int>"; "Memset (Device)" stays
+            m = re.search(r"(\w+)(<[^>]*>)?\(",
+                          e.key.replace("(anonymous namespace)", ""))
+            name = m.group(1) + (m.group(2) or "") if m else e.key
+            per_call[name] = per_call.get(name, 0.0) + us / 1e3 / CONV_ITERS
+    if not per_call:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    busy = sum(per_call.values()) * CONV_ITERS / wall_ms
+    log(f"profile: one Conv2D call (N={n} B={b} int32), device ms by "
+        f"kernel {json.dumps(per_call)}; host wall {wall_ms / CONV_ITERS:.4f}"
+        f" ms per call, device busy share {busy:.4f} (idle "
+        f"{1 - busy:.4f})")
 
 
 def timing_phase(launches: dict, worst: dict) -> list:
@@ -325,8 +673,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build_phase()
     worst = kernel_phase()
+    pipe_worst = pipeline_kernel_phase()
     launches = main_path_phase()
+    pipe_launches = pipeline_main_path_phase()
     kernels = timing_phase(launches, worst)
+    kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
+    pipeline_profile_phase()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,4 +1,5 @@
-"""Core DPRT library of the port: primitives, geometry, plans."""
+"""Core DPRT library of the port: primitives, geometry, plans, exact
+convolution and the DPRT-based DFT."""
 from .dprt import (skew_sum, strip_partial, align_partial, is_prime,
                    next_prime, accum_dtype_for, float_dtype_for,
                    int32_accum_exact, dprt_oracle_np, idprt_oracle_np)
@@ -8,6 +9,10 @@ from .plan import (Backend, RadonPlan, available_backends,
                    plan_cache_clear, plan_cache_discard, plan_cache_entries,
                    plan_cache_info, plan_from_description, register_backend,
                    select_backend, set_plan_cache_maxsize)
+from .conv import (circ_conv2d_dprt, circ_conv2d_direct, circ_conv2d_fft,
+                   linear_conv2d_dprt, linear_conv2d_direct,
+                   circ_conv1d_exact, prime_vs_pow2_padding)
+from .dft import dft2_via_dprt, dft2_via_dprt_batched, dft2_reference
 
 __all__ = [
     "skew_sum", "strip_partial", "align_partial", "is_prime", "next_prime",
@@ -18,4 +23,8 @@ __all__ = [
     "get_backend", "get_plan", "plan_cache_clear", "plan_cache_discard",
     "plan_cache_entries", "plan_cache_info", "plan_from_description",
     "register_backend", "select_backend", "set_plan_cache_maxsize",
+    "circ_conv2d_dprt", "circ_conv2d_direct", "circ_conv2d_fft",
+    "linear_conv2d_dprt", "linear_conv2d_direct", "circ_conv1d_exact",
+    "prime_vs_pow2_padding", "dft2_via_dprt", "dft2_via_dprt_batched",
+    "dft2_reference",
 ]

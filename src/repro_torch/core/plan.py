@@ -22,9 +22,15 @@ The port of :mod:`repro.core.plan`.  Two layers:
    backend, a torch Horner scan elsewhere); ``block_batch`` runs a stack
    through the backend in chunks.
 
-Not in this slice: ``stream_rows`` (the streamed kernels K4/K5, ROADMAP
-Queue 1 item 7), ``mesh`` and the sharded backends (item 9) and
-``RadonPlan.pipeline`` (item 5) raise ``NotImplementedError``.
+``RadonPlan.pipeline`` runs forward -> per-direction op -> inverse as
+one call of the fused pipeline kernel K2 on backends that declare the
+``pipeline`` capability (``cuda``), and as the staged fallback --
+forward, exact 1-D stage, inverse -- everywhere else and under
+``block_rows``; both give the same integers.
+
+Not ported yet: ``stream_rows`` (the streamed kernels K4/K5, ROADMAP
+Queue 1 item 7), ``mesh`` and the sharded backends (item 9) raise
+``NotImplementedError``.
 
 Plans are cached by (shape, dtype, method, knobs) in a bounded LRU
 (``REPRO_PLAN_CACHE_MAXSIZE``, default 512) with hit/miss/eviction
@@ -96,6 +102,12 @@ class Backend:
     forward_batched: Optional[Callable] = None
     inverse_batched: Optional[Callable] = None
     skew_batched: Optional[Callable] = None  # (B, N, N) stacks in one call
+    #: fused projection-domain pipeline (forward -> per-direction op ->
+    #: inverse without writing the projections out): callable
+    #: ``(fp, op, operand, operand_form, *, strip_rows, m_block, mesh)``
+    #: on prime-domain inputs.  ``None``: the plan runs the STAGED
+    #: fallback (forward, 1-D stage, inverse as separate steps).
+    pipeline: Optional[Callable] = None
     #: partial skew-sum of a row strip at global row ``row_offset``:
     #: ``(x, sign, *, row_offset, strip_rows, m_block)``; the ``block_rows``
     #: scan runs it once per strip.  ``None``: the plain torch Horner.
@@ -154,6 +166,7 @@ def backend_capabilities() -> list:
             "batched_native": b.batched_native,
             "needs_strip_rows": b.needs_strip_rows,
             "takes_m_block": b.takes_m_block,
+            "pipeline": b.pipeline is not None,
             "stream": b.takes_stream_rows,
             "mesh_aware": b.mesh_aware,
             "dtypes": "any" if b.dtype_kinds is None
@@ -289,6 +302,15 @@ def _cuda_inverse(r, *, strip_rows=None, m_block=None, mesh=None):
     return idprt_cuda(r, strip_rows=strip_rows, m_block=m_block)
 
 
+def _cuda_pipeline(fp, op, operand, operand_form, *, strip_rows=None,
+                   m_block=None, mesh=None):
+    # m_block here would be the PIPELINE direction block (its own tune
+    # table), distinct from K1's m_block; the plan passes none through
+    from ..kernels.ops import projection_pipeline_cuda
+    return projection_pipeline_cuda(fp, op, operand,
+                                    operand_form=operand_form)
+
+
 register_backend(Backend(
     name="gather",
     skew_sum=_gather_skew,
@@ -323,12 +345,13 @@ register_backend(Backend(
     inverse_batched=_cuda_inverse,
     skew_batched=_cuda_skew,
     skew_strip=_cuda_skew_strip,
+    pipeline=_cuda_pipeline,
     batched_native=True,
     takes_m_block=True,
     dtype_kinds=("i", "u", "f"),
     priority=100,
-    note="hand-written Hopper SFDPRT kernel K1 (one launch per stack; "
-         "plain torch version on CPU tensors)",
+    note="hand-written Hopper kernels: SFDPRT K1 (one launch per stack) "
+         "and pipeline K2; plain torch versions on CPU tensors",
 ))
 
 
@@ -360,6 +383,21 @@ def _blocked_skew_sum(gmat: torch.Tensor, sign: int, block_rows: int,
             u = strip_partial(strip, n, sign=sign, acc_dtype=acc_dtype)
             acc += align_partial(u, off, sign)
     return acc
+
+
+def _map_chunk_pairs(fn: Callable, xb: torch.Tensor, wb: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """:func:`_map_chunks` for a paired (image stack, batched operand):
+    both chunk together, so a fused conv against per-image operands
+    keeps the ``block_batch`` memory bound."""
+    b = xb.shape[0]
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"block_batch must be >= 1, got {chunk}")
+    if chunk >= b:
+        return fn(xb, wb)
+    return torch.cat([fn(xb[i:i + chunk], wb[i:i + chunk])
+                      for i in range(0, b, chunk)])
 
 
 def _map_chunks(fn: Callable, xb: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -522,10 +560,101 @@ class RadonPlan:
 
         return self._stack(fp, native, self._inverse_adjoint_prime)
 
-    def pipeline(self, f, op: str = "conv", operand=None):
-        raise NotImplementedError(
-            "RadonPlan.pipeline (the fused projection-domain pipeline, "
-            "kernel K2) is not ported yet: ROADMAP Queue 1 item 5")
+    # -- projection-domain pipeline ----------------------------------------
+    def pipeline(self, f: torch.Tensor, op: str = "conv",
+                 operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Fused ``inverse(per_direction_op(forward(f)))``.
+
+        ``op``: ``"conv"`` (per-direction 1-D circular convolution
+        against a second operand -- exact 2-D circular convolution),
+        ``"mul"`` (pointwise projection-domain multiply: the
+        ``inv @ pointwise @ fwd`` fusion) or ``"none"`` (the round
+        trip).  ``operand`` is the conv operand as a prime-domain image
+        (``(P, P)`` shared or matching ``f``'s batch) or as
+        projections/weights (``(…, P+1, P)``), the form inferred from
+        its trailing shape.
+
+        Backends with the ``pipeline`` capability run it as one kernel
+        call (K2 on ``cuda``); every other backend, and any plan with
+        ``block_rows``, takes the STAGED fallback -- forward, exact 1-D
+        stage, inverse through the same registry -- with the same
+        integers.  ``"conv"`` needs native prime geometry (embedding
+        would change the convolution's torus; :mod:`repro_torch.core.
+        conv` folds other geometries before it gets here);
+        ``"mul"``/``"none"`` fuse the literal embed -> transform ->
+        weight -> inverse -> crop composition, so any geometry works.
+        """
+        g = self.geometry
+        if op not in ("none", "mul", "conv"):
+            raise ValueError(f"pipeline op must be none|mul|conv: {op!r}")
+        if tuple(f.shape) != g.image_shape:
+            raise ValueError(f"plan built for {g.image_shape}, got image "
+                             f"{tuple(f.shape)}")
+        if op == "conv" and not g.native:
+            raise ValueError(
+                f"conv pipeline needs native square prime geometry, plan "
+                f"is {g.image_shape} embedded in P={g.prime}")
+        p = g.prime
+        operand_form = None
+        if op != "none":
+            if operand is None:
+                raise ValueError(f"pipeline op {op!r} needs an operand")
+            if op == "conv" and tuple(operand.shape[-2:]) == (p, p):
+                operand_form = "image"
+            elif tuple(operand.shape[-2:]) == (p + 1, p):
+                operand_form = "proj"
+            else:
+                raise ValueError(
+                    f"pipeline operand must be (…, {p}, {p}) images or "
+                    f"(…, {p + 1}, {p}) projections/weights for "
+                    f"op={op!r}, got {tuple(operand.shape)}")
+            if operand.ndim == 3 and g.batch not in (None, operand.shape[0]) \
+                    and operand.shape[0] != 1:
+                raise ValueError(
+                    f"batched pipeline operand {tuple(operand.shape)} does "
+                    f"not match plan batch {g.batch}")
+
+        be = self.backend
+        if be.pipeline is not None and self.block_rows is None:
+            fp = G.embed(f, g)
+            if g.batched and self.block_batch is not None:
+                if (operand is None or operand.ndim == 2
+                        or operand.shape[0] == 1):
+                    out = _map_chunks(
+                        lambda chunk: be.pipeline(chunk, op, operand,
+                                                  operand_form,
+                                                  **self._knobs()),
+                        fp, self.block_batch)
+                else:   # batched operand: chunk image and operand together
+                    out = _map_chunk_pairs(
+                        lambda chunk, wch: be.pipeline(chunk, op, wch,
+                                                       operand_form,
+                                                       **self._knobs()),
+                        fp, operand, self.block_batch)
+            else:
+                out = be.pipeline(fp, op, operand, operand_form,
+                                  **self._knobs())
+            return G.crop(out, g)
+
+        # staged fallback: the same three stages, separate launches
+        rf = self.forward(f)
+        if op == "conv":
+            if operand_form == "image":
+                if tuple(operand.shape) == g.image_shape:
+                    rg = self.forward(operand)
+                else:  # one shared (P, P) operand for a batched plan
+                    rg = get_plan((p, p), self.dtype_name, self.method,
+                                  strip_rows=self.strip_rows,
+                                  m_block=self.m_block).forward(operand)
+            else:
+                rg = operand
+            from .conv import circ_conv1d_exact
+            rc = circ_conv1d_exact(rf, rg)
+        elif op == "mul":
+            rc = rf * operand.to(rf.dtype)
+        else:
+            rc = rf
+        return self.inverse(rc.to(rf.dtype))
 
     def describe(self) -> dict:
         g = self.geometry

@@ -1,18 +1,25 @@
 """Hand-written Hopper kernels for the DPRT hot spot.
 
 K1, the fused batched SFDPRT kernel, lives in ``csrc/sfdprt.cu`` with
-its launcher and plain version in :mod:`.sfdprt`; :mod:`.ops` wraps it
-with block resolution (:mod:`.tuning`) and is what the plan's ``cuda``
-backend dispatches to.  :mod:`._build` compiles the CUDA sources at
-first use.
+its launcher and plain version in :mod:`.sfdprt`; K2, the fused
+projection-domain pipeline, in ``csrc/pipeline.cu`` with
+:mod:`.pipeline`.  :mod:`.ops` wraps both with block resolution
+(:mod:`.tuning`) and is what the plan's ``cuda`` backend dispatches
+to.  :mod:`._build` compiles the CUDA sources at first use.
 """
-from .ops import (dprt_cuda, dprt_cuda_strip, idprt_cuda, skew_sum_cuda,
-                  skew_sum_cuda_strip)
+from .ops import (dprt_cuda, dprt_cuda_strip, idprt_cuda,
+                  pipeline_tail_cuda, projection_pipeline_cuda,
+                  skew_sum_cuda, skew_sum_cuda_strip)
 from .ref import dprt_ref, idprt_ref, skew_sum_ref
 from .sfdprt import isfdprt_core
-from .tuning import PALLAS_TUNE, pallas_block_spec, resolve_blocks
+from .tuning import (PALLAS_TUNE, PIPELINE_TUNE, pallas_block_spec,
+                     pipeline_block_spec, resolve_blocks,
+                     resolve_pipeline_blocks)
 
 __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
            "skew_sum_cuda_strip", "dprt_cuda_strip", "isfdprt_core",
+           "projection_pipeline_cuda", "pipeline_tail_cuda",
            "dprt_ref", "idprt_ref", "skew_sum_ref",
-           "PALLAS_TUNE", "pallas_block_spec", "resolve_blocks"]
+           "PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
+           "PIPELINE_TUNE", "pipeline_block_spec",
+           "resolve_pipeline_blocks"]

@@ -1,16 +1,20 @@
-"""Public wrappers around K1, the fused SFDPRT kernel.
+"""Public wrappers around K1, the fused SFDPRT kernel, and K2, the fused
+projection-domain pipeline.
 
-The port of :mod:`repro.kernels.ops` (transform half): the layer the
-plan's ``cuda`` backend dispatches to.  Each wrapper takes a single
-(N, N) image or a batched (B, N, N) stack (one kernel launch per
-stack), resolves block shapes through :mod:`.tuning` when not given,
-and accumulates in :func:`repro_torch.core.dprt.accum_dtype_for`.  The
-forward/inverse epilogues run inside the kernel.
+The port of :mod:`repro.kernels.ops`: the layer the plan's ``cuda``
+backend dispatches to.  Each wrapper takes a single (N, N) image or a
+batched (B, N, N) stack (one kernel call per stack), resolves block
+shapes through :mod:`.tuning` when not given, and accumulates in
+:func:`repro_torch.core.dprt.accum_dtype_for`.  The forward/inverse
+epilogues run inside K1; :func:`projection_pipeline_cuda` runs forward,
+per-direction op and inverse in one K2 call.
 
 A CUDA tensor always goes through the kernel (or raises); a CPU tensor
-takes the kernel's plain version (:func:`.sfdprt.sfdprt_plain`).
-``stream_rows`` (the streamed kernels K4/K5) is not ported yet and
-raises.
+takes the kernel's plain version (:func:`.sfdprt.sfdprt_plain`,
+:func:`.pipeline.pipeline_plain`).  Not ported yet, and raising
+``NotImplementedError`` with their ROADMAP item: ``stream_rows`` (the
+streamed kernels K4/K5, item 7) and :func:`pipeline_tail_cuda` (the
+mesh pipeline's tail, K3, item 9).
 """
 from __future__ import annotations
 
@@ -19,11 +23,16 @@ from typing import Optional
 import torch
 
 from ..core.dprt import accum_dtype_for, is_prime
-from .sfdprt import dprt_raw, idprt_raw, skew_sum_raw
-from .tuning import resolve_blocks
+from .pipeline import PIPELINE_OPS, pipeline_raw
+from .sfdprt import _rows_contiguous, dprt_raw, idprt_raw, skew_sum_raw
+from .tuning import resolve_blocks, resolve_pipeline_blocks
 
 __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
-           "skew_sum_cuda_strip", "dprt_cuda_strip"]
+           "skew_sum_cuda_strip", "dprt_cuda_strip",
+           "projection_pipeline_cuda", "pipeline_tail_cuda"]
+
+PIPELINE_TAIL_TODO = ("pipeline_tail_cuda (the mesh pipeline's tail, "
+                      "kernel K3) is not ported yet: ROADMAP Queue 1 item 9")
 
 
 def _resolve_blocks(n: int, strip_rows: Optional[int],
@@ -117,3 +126,78 @@ def idprt_cuda(r: torch.Tensor, strip_rows: Optional[int] = None,
     h, mb = _resolve_blocks(n, strip_rows, m_block, rb.dtype, stream_rows)
     out = idprt_raw(rb, strip_rows=h, m_block=mb)
     return out[0] if single else out
+
+
+def projection_pipeline_cuda(f: torch.Tensor, op: str = "conv",
+                             operand: Optional[torch.Tensor] = None,
+                             operand_form: Optional[str] = None,
+                             m_block: Optional[int] = None,
+                             group: Optional[int] = None,
+                             lane_batch: Optional[int] = None
+                             ) -> torch.Tensor:
+    """Fused projection-domain pipeline: inverse(op(forward(f))) in one
+    K2 call -- the projections never reach device memory.
+    Counterpart of ``repro.kernels.ops.projection_pipeline_pallas``.
+
+    ``f``: (N, N) or a (B, N, N) stack, N prime.  ``op``:
+
+    * ``"conv"`` -- per-direction 1-D circular convolution against the
+      second operand, i.e. exact 2-D circular convolution.  ``operand``
+      is the other image ((N, N) shared or (B, N, N) matched; its
+      forward runs in-kernel) or its projections ((N+1, N) /
+      (B, N+1, N)), the form inferred from the trailing shape unless
+      ``operand_form`` says.
+    * ``"mul"``  -- pointwise projection-domain multiply by (N+1, N) /
+      (B, N+1, N) weights (the ``inv @ pointwise @ fwd`` fusion).
+    * ``"none"`` -- inverse(forward(f)): the fused round trip.
+
+    Returns the (…, N, N) result in the accumulator dtype, bit-exact for
+    integers.  ``group`` and ``lane_batch`` are validated and change no
+    output on Hopper.
+    """
+    if op not in PIPELINE_OPS:
+        raise ValueError(f"pipeline op must be one of {PIPELINE_OPS}: {op!r}")
+    single = f.ndim == 2
+    fb = f[None] if single else f
+    if fb.ndim != 3 or fb.shape[-1] != fb.shape[-2]:
+        raise ValueError(f"pipeline needs (B, N, N) or (N, N), got "
+                         f"{tuple(f.shape)}")
+    n = fb.shape[-1]
+    if not is_prime(n):
+        raise ValueError(f"pipeline needs prime N, got {n}")
+    acc = accum_dtype_for(fb.dtype, n)
+    wb = None
+    if op != "none":
+        if operand is None:
+            raise ValueError(f"pipeline op {op!r} needs an operand")
+        wb = operand[None] if operand.ndim == 2 else operand
+        if operand_form is None:
+            operand_form = "image" if (op == "conv"
+                                       and wb.shape[-2] == n) else "proj"
+        want = (n, n) if (op == "conv" and operand_form == "image") \
+            else (n + 1, n)
+        if wb.ndim != 3 or tuple(wb.shape[-2:]) != want:
+            raise ValueError(
+                f"pipeline operand for op={op!r}/{operand_form} must be "
+                f"(…, {want[0]}, {want[1]}), got {tuple(operand.shape)}")
+        if wb.shape[0] not in (1, fb.shape[0]):
+            raise ValueError(
+                f"batched pipeline operand must match the stack batch "
+                f"({fb.shape[0]}), got {tuple(operand.shape)}")
+        wb = _rows_contiguous(wb.to(acc))
+    mb, grp = resolve_pipeline_blocks(n, acc.itemsize, m_block, group)
+    lb = 1 if lane_batch is None else int(lane_batch)
+    out, _aux = pipeline_raw(_rows_contiguous(fb.to(acc)), wb, op=op,
+                             operand_form=operand_form or "proj",
+                             m_block=mb, group=grp, lane_batch=lb)
+    return out[0] if single else out
+
+
+def pipeline_tail_cuda(rows, op: str = "conv", operand=None, *,
+                       row_offset=0, n: Optional[int] = None,
+                       m_block: Optional[int] = None,
+                       group: Optional[int] = None,
+                       lane_batch: Optional[int] = None):
+    """The mesh pipeline's shard-local tail (the reference's
+    ``pipeline_tail_pallas``, kernel K3): not ported yet."""
+    raise NotImplementedError(PIPELINE_TAIL_TODO)

@@ -1,0 +1,208 @@
+"""K2, the fused projection-domain pipeline: its launcher and plain version.
+
+The port of the pipeline half of :mod:`repro.kernels.sfdprt`.  One CUDA
+source (``csrc/pipeline.cu``, CUDA C++ for ``sm_90a``) replaces the TPU
+kernel ``repro/kernels/sfdprt.py:_pipeline_kernel`` with
+``source="image"``: for a (B, N, N) image stack it runs the forward
+DPRT of a block of directions, the per-direction op
+
+* ``conv`` -- ``rc[m, d] = sum_t rf[m, t] * rg[m, <d - t>_N]`` against
+  the operand's projections (computed in-kernel from an operand image,
+  ``operand_form="image"``, or given, ``"proj"``),
+* ``mul``  -- ``rf * w`` against (N+1, N) projection-domain weights,
+* ``none`` -- no change,
+
+keeps rows 0 and N of the result in ``aux`` and runs the inverse onto
+all N x N outputs, ending with ``floor((Z - S + rc[N, i]) / N)``.  The
+projections never reach device memory.
+
+:func:`pipeline_raw` is the wrapper: on a CUDA tensor it launches the
+kernel or raises (no fallback); on a CPU tensor it runs
+:func:`pipeline_plain`, the same function composed from K1's plain
+version and a chunked 1-D circular convolution, which is also what
+``chip_smoke.py`` holds the kernel against on the card.  ``m_block``
+is the number of directions one thread block owns, capped by the
+shared memory a block holds (:func:`smem_blocks`); ``group`` and
+``lane_batch`` -- the TPU kernel's conv tap group and batch-in-lanes
+width -- are validated and change no output here.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..core.conv import circ_conv1d_exact
+from . import _build
+from .sfdprt import SMEM_BUDGET, _DTYPES, sfdprt_plain
+
+__all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_plain", "smem_blocks",
+           "OP_LAUNCHES", "reset_launch_counts"]
+
+PIPELINE_OPS = ("none", "mul", "conv")
+_OPS = {"none": 0, "mul": 1, "conv": 2}
+
+#: pipeline calls that launched K2 since the last reset, by op.  Only
+#: :func:`pipeline_raw` adds to them, once per call that launches; one
+#: call is a memset of the output and two kernel launches (the main
+#: kernel, then the one that applies the correction and the floor
+#: divide once every block of an image is done).
+OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
+
+
+def reset_launch_counts() -> None:
+    for op in OP_LAUNCHES:
+        OP_LAUNCHES[op] = 0
+
+
+def smem_blocks(n: int, itemsize: int, m_block: int,
+                op: str) -> tuple[int, int]:
+    """(directions per block, image rows per tile) that fit one block's
+    :data:`~repro_torch.kernels.sfdprt.SMEM_BUDGET`.
+
+    A block holds its directions' projections (``m_block`` rows of N;
+    twice that for ``conv``, whose operand projections sit beside them)
+    and a tile area that stages the image and, for ``conv``, then holds
+    the convolved rows.  ``m_block`` is capped at N+1 and at what fits;
+    the tile takes the rest, up to N rows.  Raises ValueError when not
+    even one direction row fits.
+    """
+    fit = SMEM_BUDGET // (n * itemsize)
+    bufs = 2 if op == "conv" else 1
+    if op == "conv":
+        mb = min(int(m_block), n + 1, fit // 3)   # rf, rg and rc rows
+    else:
+        mb = min(int(m_block), n + 1, fit - 1)    # rf plus one tile row
+    if mb < 1:
+        raise ValueError(
+            f"one direction row of N={n} {itemsize}-byte values (with its "
+            f"operand and tile rows for op={op!r}) does not fit the "
+            f"pipeline kernel's {SMEM_BUDGET}-byte shared-memory budget")
+    return mb, min(n, fit - bufs * mb)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("pipeline")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pipeline_launch.argtypes = [i32, vp, i64, vp, i64, vp, vp, i32, i32,
+                                    i32, i32, i32, i32, vp]
+    lib.pipeline_launch.restype = i32
+    lib.pipeline_error_string.argtypes = [i32]
+    lib.pipeline_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(f: torch.Tensor, operand, op: str, operand_form: str,
+           m_block: int, group: int, lane_batch: int) -> None:
+    if op not in _OPS:
+        raise ValueError(f"pipeline op must be one of {PIPELINE_OPS}: {op!r}")
+    if f.ndim != 3 or f.shape[1] != f.shape[2] or f.shape[2] < 2:
+        raise ValueError(f"pipeline image stack must be (B, N, N), got "
+                         f"{tuple(f.shape)}")
+    if f.dtype not in _DTYPES:
+        raise TypeError(f"pipeline input must be in an accumulator dtype "
+                        f"{tuple(_DTYPES)}, got {f.dtype}")
+    if f.stride(2) != 1 or f.stride(1) != f.shape[2]:
+        raise ValueError("pipeline image rows must be contiguous")
+    for name, v in (("m_block", m_block), ("group", group),
+                    ("lane_batch", lane_batch)):
+        if int(v) < 1:
+            raise ValueError(f"{name} must be >= 1, got {v}")
+    if op == "none":
+        if operand is not None:
+            raise ValueError("pipeline op 'none' takes no operand")
+        return
+    b, n = f.shape[0], f.shape[2]
+    if operand_form not in ("image", "proj") or (
+            operand_form == "image" and op != "conv"):
+        raise ValueError(f"operand_form {operand_form!r} does not fit "
+                         f"op {op!r}")
+    rows = n if operand_form == "image" else n + 1
+    if (operand is None or operand.ndim != 3
+            or tuple(operand.shape[1:]) != (rows, n)
+            or operand.shape[0] not in (1, b)):
+        raise ValueError(
+            f"pipeline operand for op={op!r}/{operand_form} must be "
+            f"(1 or {b}, {rows}, {n}), got "
+            f"{None if operand is None else tuple(operand.shape)}")
+    if operand.dtype != f.dtype or operand.device != f.device:
+        raise ValueError(f"pipeline operand must be {f.dtype} on "
+                         f"{f.device}, got {operand.dtype} on "
+                         f"{operand.device}")
+    if operand.stride(2) != 1 or operand.stride(1) != n:
+        raise ValueError("pipeline operand rows must be contiguous")
+
+
+def pipeline_raw(f: torch.Tensor, operand: Optional[torch.Tensor] = None,
+                 *, op: str = "none", operand_form: str = "proj",
+                 m_block: int = 32, group: int = 4,
+                 lane_batch: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K2 over ``f`` (B, N, N), already in the accumulator dtype.
+
+    ``operand`` (same dtype and device): None for ``op="none"``; the
+    conv operand as (B|1, N, N) images (``operand_form="image"``) or
+    (B|1, N+1, N) projections, or (B|1, N+1, N) ``mul`` weights.
+    Returns ``(out, aux)``: the (B, N, N) result and the (B, 2, N) rows
+    0 and N of the per-direction op's output.  A CUDA tensor launches
+    the kernel on the current stream (raising if the launch is
+    refused); a CPU tensor takes :func:`pipeline_plain`.
+    """
+    _check(f, operand, op, operand_form, m_block, group, lane_batch)
+    if f.device.type == "cpu":
+        return pipeline_plain(f, operand, op=op, operand_form=operand_form)
+    if f.device.type != "cuda":
+        raise RuntimeError(f"K2 runs on CUDA or CPU tensors, not {f.device}")
+    b, _, n = f.shape
+    out = torch.empty((b, n, n), dtype=f.dtype, device=f.device)
+    aux = torch.empty((b, 2, n), dtype=f.dtype, device=f.device)
+    if b == 0:
+        return out, aux
+    mb, tile = smem_blocks(n, f.element_size(), m_block, op)
+    lib = _lib()
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    w_ptr, w_stride = None, 0
+    if operand is not None:
+        w_ptr = operand.data_ptr()
+        w_stride = operand.stride(0) if operand.shape[0] == b and b > 1 \
+            else 0
+    err = lib.pipeline_launch(
+        _DTYPES[f.dtype], f.data_ptr(), f.stride(0), w_ptr, w_stride,
+        out.data_ptr(), aux.data_ptr(), b, n, mb, tile, _OPS[op],
+        int(op == "conv" and operand_form == "image"), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"pipeline kernel launch failed (op={op}, {operand_form}, "
+            f"B={b}, N={n}, m_block={mb}, tile_rows={tile}): "
+            f"{lib.pipeline_error_string(err).decode()}")
+    OP_LAUNCHES[op] += 1
+    return out, aux
+
+
+def pipeline_plain(f: torch.Tensor, operand: Optional[torch.Tensor] = None,
+                   *, op: str = "none",
+                   operand_form: str = "proj"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 (any device): K1's plain forward, the
+    per-direction op (a chunked exact 1-D circular convolution for
+    ``conv``), rows 0 and N into ``aux``, K1's plain inverse core and
+    the floor-divided correction."""
+    n = f.shape[-1]
+    rf = sfdprt_plain(f, sign=1, mode="forward")
+    if op == "conv":
+        rg = (sfdprt_plain(operand, sign=1, mode="forward")
+              if operand_form == "image" else operand)
+        rc = circ_conv1d_exact(rf, rg)
+    elif op == "mul":
+        rc = rf * operand
+    else:
+        rc = rf
+    aux = torch.stack([rc[:, 0], rc[:, n]], dim=1)
+    z = sfdprt_plain(rc[:, :n].contiguous(), sign=-1, mode="core")
+    s = rc[:, 0].sum(-1, dtype=rc.dtype)
+    num = z - s[:, None, None] + rc[:, n, :, None]
+    if num.dtype.is_floating_point:
+        return num / n, aux
+    return torch.div(num, n, rounding_mode="floor"), aux

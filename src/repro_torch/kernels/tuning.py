@@ -1,17 +1,19 @@
 """(N -> strip_rows H, m_block M) block resolution for the SFDPRT kernel.
 
-The port of the transform half of :mod:`repro.kernels.tuning`.  The
-table and the heuristic are copied unchanged so that every knob
-resolves to the same ``(strip_rows, m_block)`` as the reference, and a
+The port of the transform and pipeline halves of
+:mod:`repro.kernels.tuning`.  The tables and the heuristics are copied
+unchanged so that every knob resolves to the same ``(strip_rows,
+m_block)`` and pipeline ``(m_block, group)`` as the reference, and a
 plan's ``describe()`` reads the same in both packages.
 
-**These rows are not H100 measurements.**  They were chosen for the TPU
-kernel (CPU-interpret timings and VMEM budgets).  On Hopper ``m_block``
-is the number of directions one thread block owns, and ``strip_rows``
-caps the rows staged through shared memory per step (the kernel further
-caps it by the shared memory a block can hold; integer results do not
-depend on either).  Rows measured on the card replace these in a later
-change.
+**These rows are the reference's, not H100 measurements.**  They were
+chosen for the TPU kernels (CPU-interpret timings and VMEM budgets).
+On Hopper ``m_block`` is the number of directions one thread block
+owns (K2 further caps it by the shared memory a block can hold), and
+``strip_rows`` caps the rows staged through shared memory per step (K1
+further caps it the same way); integer results depend on neither.  The
+pipeline's ``group`` (the TPU kernel's conv tap group) changes nothing
+on Hopper.  Rows measured on the card replace these in a later change.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ import math
 import warnings
 
 __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
-           "wasted_direction_rows"]
+           "wasted_direction_rows", "PIPELINE_TUNE", "pipeline_block_spec",
+           "resolve_pipeline_blocks"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
+_PIPELINE_FALLBACK_WARNED: set = set()
 
 
 def _warn_off_table(n: int, table: dict, warned: set, kind: str) -> None:
@@ -109,3 +113,42 @@ def wasted_direction_rows(n: int, m_block: int, forward: bool = True) -> int:
     neither computes nor writes them."""
     rows = n + 1 if forward else n
     return math.ceil(rows / m_block) * m_block - rows
+
+
+# ---------------------------------------------------------------------------
+# projection-domain pipeline (fused fwd -> per-direction op -> inverse)
+# ---------------------------------------------------------------------------
+# N: (m_block M, conv tap group K) -- the reference's table, row for row.
+# The pipeline runs the whole image per direction block, so its only
+# knobs are the direction block M and the TPU kernel's tap group K.
+PIPELINE_TUNE = {
+    61: (62, 4),
+    127: (64, 4),
+    251: (64, 4),
+    509: (64, 4),
+    1021: (64, 4),
+    2053: (64, 4),
+    4099: (64, 4),
+}
+
+
+def pipeline_block_spec(n: int, itemsize: int = 4) -> tuple[int, int]:
+    """Table (m_block, group) for the fused pipeline; the reference's
+    heuristic off-table."""
+    if n in PIPELINE_TUNE:
+        return PIPELINE_TUNE[n]
+    _warn_off_table(n, PIPELINE_TUNE, _PIPELINE_FALLBACK_WARNED, "pipeline")
+    if n <= 61:
+        return n + 1, 4         # one m-block covers every direction row
+    return 64, 4
+
+
+def resolve_pipeline_blocks(n: int, itemsize: int = 4,
+                            m_block=None, group=None) -> tuple[int, int]:
+    """Fill missing pipeline (m_block, group) from the table, validate."""
+    tm, tg = pipeline_block_spec(n, itemsize)
+    mb = tm if m_block is None else int(m_block)
+    k = tg if group is None else int(group)
+    if mb < 1 or k < 1:
+        raise ValueError(f"m_block/group must be >= 1, got {mb}/{k}")
+    return mb, k

@@ -8,11 +8,18 @@
     f = op.inverse(r)                               # bit-exact reconstruction
     y = op.T(w)                                     # exact adjoint
 
+    conv = radon.Conv2D(img.shape, torch.ones(3, 3, dtype=torch.int32))
+    y = conv(img)                                   # exact, one K2 call
+    filt = op.inverse @ radon.ProjectionFilter(w) @ op   # fused: one K2 call
+
     with radon.config(method="horner"):
         ...                                         # ambient knob defaults
 
-Exports only what the port has so far: the DPRT operators, ambient
-config scopes, retrace accounting and the plan layer.
+Exports what the port has so far: the DPRT operators, the
+projection-domain fusion surface (``Conv2D``, ``ProjectionFilter``,
+``FusedProjectionPipeline``, ``pipeline_apply``), ambient config
+scopes, build accounting and the plan layer.  The reconstruction
+subsystem and the AOT cache are not ported yet.
 """
 from ..core.plan import (Backend, RadonPlan, available_backends,
                          backend_capabilities, get_backend, get_plan,
@@ -24,10 +31,17 @@ from ..core.plan import (Backend, RadonPlan, available_backends,
 from .ambient import CONFIG_KEYS, config, current_config
 from .autodiff import (RetraceError, reset_trace_counts, retrace_guard,
                        trace_count, trace_counts)
-from .operators import DPRT, CompositeOperator, RadonOperator, operator_for
+from .fusion import flip_image, flip_lanes, pipeline_apply
+from .operators import (DPRT, CompositeOperator, Conv2D,
+                        FusedProjectionPipeline, ProjectionFilter,
+                        RadonOperator, conv2d_from_description,
+                        operator_for, projection_filter_from_numpy)
 
 __all__ = [
-    "DPRT", "RadonOperator", "CompositeOperator", "operator_for",
+    "DPRT", "Conv2D", "ProjectionFilter", "FusedProjectionPipeline",
+    "RadonOperator", "CompositeOperator", "operator_for",
+    "conv2d_from_description", "projection_filter_from_numpy",
+    "pipeline_apply", "flip_image", "flip_lanes",
     "config", "current_config", "CONFIG_KEYS",
     "retrace_guard", "trace_count", "trace_counts", "reset_trace_counts",
     "RetraceError",

@@ -14,9 +14,11 @@ directly.
 Retrace accounting
 ------------------
 PyTorch runs eagerly: there is no trace to repeat.  What a serving loop
-must not repeat is *building* -- a plan (cache miss) or a CUDA kernel
-library (nvcc).  Both are counted here, as ``(plan, "plan")`` and
-``(library, "kernel")`` events; :func:`retrace_guard` raises
+must not repeat is *building* -- a plan (cache miss), a CUDA kernel
+library (nvcc) or a plan's differentiable pipeline applier
+(:mod:`repro_torch.radon.fusion`).  They are counted here, as
+``(plan, "plan")``, ``(library, "kernel")`` and
+``(plan, "pipeline:<op>")`` events; :func:`retrace_guard` raises
 :class:`RetraceError` when any one of them happens more than
 ``max_traces`` times inside the scope (``max_traces=0`` asserts a warm
 steady state).

@@ -44,14 +44,16 @@ def _forbidden_imports(path):
 def test_port_has_the_slice_modules():
     rel = {os.path.relpath(p, PORT) for p in _port_files()}
     for mod in ("core/dprt.py", "core/geometry.py", "core/plan.py",
-                "kernels/sfdprt.py", "kernels/ops.py", "kernels/tuning.py",
-                "kernels/ref.py", "kernels/_build.py", "radon/operators.py",
-                "radon/autodiff.py", "radon/ambient.py", "launch/serve.py",
+                "core/conv.py", "core/dft.py",
+                "kernels/sfdprt.py", "kernels/pipeline.py", "kernels/ops.py",
+                "kernels/tuning.py", "kernels/ref.py", "kernels/_build.py",
+                "radon/operators.py", "radon/autodiff.py", "radon/fusion.py",
+                "radon/ambient.py", "launch/serve.py",
                 "launch/service.py", "data/synthetic.py",
                 "configs/radon_251.py"):
         assert mod in rel, mod
-    assert os.path.isfile(os.path.join(PORT, "kernels", "csrc",
-                                       "sfdprt.cu"))
+    for src in ("sfdprt.cu", "pipeline.cu"):
+        assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -145,7 +145,11 @@ def test_stream_rows_mesh_and_pipeline_raise():
         TP.get_plan((13, 13), torch.int32, stream_rows=4)
     with pytest.raises(NotImplementedError, match="item 9"):
         TP.get_plan((13, 13), torch.int32, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the pipeline is ported (item 5); its mesh tail (K3) is not
+    from repro_torch.kernels.ops import pipeline_tail_cuda
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pipeline_tail_cuda(torch.zeros(4, 13, dtype=torch.int32))
+    with pytest.raises(ValueError, match="needs an operand"):
         TP.get_plan((13, 13), torch.int32).pipeline(
             torch.zeros(13, 13, dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown method"):
