@@ -6,9 +6,9 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-the two main paths of the ``radon_251`` configuration (256 phantom
-images of 251 x 251, int32), each with the launch counts set to 0 just
-before it and read just after:
+three main paths -- two of the ``radon_251`` configuration (256 phantom
+images of 251 x 251, int32) and the giant-N path -- each with the launch
+counts set to 0 just before it and read just after:
 
 1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
    and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
@@ -16,7 +16,12 @@ before it and read just after:
    with a 3 x 3 ones kernel (bit-identical to the staged K1 / 1-D conv /
    K1 composition and to the direct oracle), the fused
    ``op.inverse @ ProjectionFilter(w) @ op``, the DPRT-based DFT and a
-   float32 gradient check of ``Conv2D``.
+   float32 gradient check of ``Conv2D``;
+3. the giant-N path (kernels K4/K5, the streamed kernel):
+   ``serve --mode radon --n 4099 --batch 4 --stream-rows 256`` through
+   K5, the raw functions with ``stream_impl="grid"`` through K4, the
+   reference's N = 2053 acceptance image, a uint8 N = 4099 image (int64
+   accumulators), a float32 gradient and a streamed ``mul`` pipeline.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, and times every kernel against its bound.
@@ -190,6 +195,25 @@ def kernel_phase() -> dict:
                             got, want, n)
                         worst[mode] = max(worst.get(mode, 0.0), err)
                         cases += 1
+    # int32 overflow: skew-sums, row sums and Z + corr wrap as in JAX, and
+    # the inverse's floor divide sees negative numerators
+    big = 2 ** 28
+    for n in (13, 251):
+        h, mb = pallas_block_spec(n)
+        g = torch.as_tensor(rng.integers(-big, big, (3, n, n)),
+                            dtype=torch.int32).to(dev)
+        corr = torch.as_tensor(rng.integers(-big, big, (3, n)),
+                               dtype=torch.int32).to(dev)
+        for label, kw in (("core+", dict(sign=1, mode="core")),
+                          ("core-", dict(sign=-1, mode="core")),
+                          ("forward", dict(sign=1, mode="forward")),
+                          ("inverse", dict(sign=-1, mode="inverse",
+                                           corr=corr))):
+            got = S.sfdprt(g, strip_rows=h, m_block=mb, **kw)
+            torch.cuda.synchronize()
+            check_close(f"K1 overflow {label} N={n}", got,
+                        S.sfdprt_plain(g, **kw), n)
+            cases += 1
     log(f"kernel phase: {cases} cases agree with the plain version "
         f"(max |err| by mode: {worst})")
     return worst
@@ -656,6 +680,381 @@ def timing_phase(launches: dict, worst: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 3: giant-N streaming (K4/K5)
+# ---------------------------------------------------------------------------
+GIANT_N = 4099
+GIANT_BATCH = 4
+GIANT_STREAM_ROWS = 256
+GIANT_TIMING_REPS = 10
+#: the reference's acceptance geometry (tests/test_stream.py): one
+#: N = 2053 int32 image with stream_rows 256
+ACCEPT_N = 2053
+#: sizes of the K4/K5 kernel phase: every strip height and batch at the
+#: small N, the table's blocks at the giant ones
+STREAM_CHECK_NS = (5, 13, 61, 251)
+STREAM_OVERFLOW_NS = (13, 251)
+
+
+def stream_kernel_phase() -> dict:
+    """K4 (grid) and K5 (dma) against their plain version: every mode,
+    sign +-1, row_offset partials, strip heights 1, 7, the table's and
+    > N, batch 1 and 3, int32/int64 bit-exact (incl. int32 overflow and
+    negative numerators of the inverse), float32/float64 within K1's
+    tolerance; N = 2053 at the table's strip height; one N = 4099
+    forward per impl; and one launch per call whatever the strip count."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.kernels.tuning import pallas_block_spec
+
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
+    worst = {}
+    cases = 0
+
+    def make(dt, shape, lo=-200, hi=256):
+        if dt.is_floating_point:
+            a = rng.random(shape)
+        else:
+            a = rng.integers(lo, hi, shape)
+        return torch.as_tensor(a).to(dt).to(dev)
+
+    def runs_for(g, part, corr, n):
+        return [("core+", g, dict(sign=1, mode="core")),
+                ("core-", g, dict(sign=-1, mode="core")),
+                ("core+off", part, dict(sign=1, mode="core", row_offset=2)),
+                ("core-off", part, dict(sign=-1, mode="core",
+                                        row_offset=n + 3)),
+                ("forward", g, dict(sign=1, mode="forward")),
+                ("forward-off", part, dict(sign=1, mode="forward",
+                                           row_offset=2)),
+                ("inverse", g, dict(sign=-1, mode="inverse", corr=corr))]
+
+    def check(label, x, h, mb, kw):
+        nonlocal cases
+        want = ST.stream_plain(x, stream_rows=h, **kw)
+        torch.cuda.synchronize()
+        for impl in ST.STREAM_IMPLS:
+            got = ST.stream_raw(x, stream_rows=h, m_block=mb,
+                                stream_impl=impl, **kw)
+            torch.cuda.synchronize()
+            err = check_close(f"K4/K5 {impl} {label}", got, want,
+                              x.shape[-1])
+            key = f"{impl},{kw['mode']}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            cases += 1
+
+    for n in STREAM_CHECK_NS:
+        th, tm = pallas_block_spec(n)
+        for h in sorted({1, 7, th, n + 5}):
+            for b in (1, 3):
+                for dt in dtypes:
+                    g = make(dt, (b, n, n))
+                    part = make(dt, (b, max(1, n - 2), n))
+                    corr = make(dt, (b, n), -5000, 5000)
+                    for label, x, kw in runs_for(g, part, corr, n):
+                        check(f"{label} N={n} H={h} M={tm} B={b} {dt}", x,
+                              h, tm, kw)
+    big = 2 ** 28
+    for n in STREAM_OVERFLOW_NS:             # int32 overflow
+        th, tm = pallas_block_spec(n)
+        g = make(torch.int32, (3, n, n), -big, big)
+        part = make(torch.int32, (3, n - 2, n), -big, big)
+        corr = make(torch.int32, (3, n), -big, big)
+        for label, x, kw in runs_for(g, part, corr, n):
+            check(f"overflow {label} N={n} H=7", x, 7, tm, kw)
+    n = ACCEPT_N                             # giant N, the table's blocks
+    th, tm = pallas_block_spec(n)
+    for dt in (torch.int32, torch.int64):
+        g = make(dt, (1, n, n))
+        corr = make(dt, (1, n), -5000, 5000)
+        for label, kw in (("core+", dict(sign=1, mode="core")),
+                          ("core-", dict(sign=-1, mode="core")),
+                          ("forward", dict(sign=1, mode="forward")),
+                          ("inverse", dict(sign=-1, mode="inverse",
+                                           corr=corr))):
+            check(f"{label} N={n} H={th} M={tm} {dt}", g, th, tm, kw)
+    n = GIANT_N
+    th, tm = pallas_block_spec(n)
+    g = make(torch.int32, (1, n, n), 0, 256)
+    check(f"forward N={n} H={th} M={tm}", g, th, tm,
+          dict(sign=1, mode="forward"))
+    # one launch per call, whatever the strip count; K1 never
+    g = make(torch.int32, (1, 61, 61))
+    for h in (7, 14):
+        for impl in ST.STREAM_IMPLS:
+            for mode in ("forward", "core"):
+                before = (ST.LAUNCHES, S.LAUNCHES)
+                if mode == "core":
+                    S.skew_sum_raw(g, -1, m_block=16, stream_rows=h,
+                                   stream_impl=impl)
+                else:
+                    S.dprt_raw(g, m_block=16, stream_rows=h,
+                               stream_impl=impl)
+                torch.cuda.synchronize()
+                if (ST.LAUNCHES, S.LAUNCHES) != (before[0] + 1, before[1]):
+                    fail(f"streamed {impl} {mode} at H={h} launched "
+                         f"{ST.LAUNCHES - before[0]} streamed and "
+                         f"{S.LAUNCHES - before[1]} K1 kernels, not 1 and 0")
+    log(f"stream kernel phase: {cases} cases agree with the plain version "
+        f"(max |err| by impl,mode: {worst}); one launch per call at H=7, 14")
+    return worst
+
+
+def giant_main_path_phase() -> dict:
+    """The giant-N path on the card: ``serve --mode radon --n 4099
+    --batch 4 --stream-rows 256`` (K5), the raw functions with
+    ``stream_impl="grid"`` (K4), the N = 2053 acceptance image, a uint8
+    N = 4099 image (int64 accumulators), a float32 gradient and a
+    streamed ``mul`` pipeline; returns the launches of that run."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.core.dprt import accum_dtype_for
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.launch import serve
+
+    n, b, sr = GIANT_N, GIANT_BATCH, GIANT_STREAM_ROWS
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    n2 = ACCEPT_N
+    f2 = torch.from_numpy(rng.integers(0, 256, (n2, n2), dtype=np.int32)
+                          ).to(dev)
+    w2 = torch.from_numpy(rng.integers(-9, 10, (n2 + 1, n2),
+                                       dtype=np.int32)).to(dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, (n, n), dtype=np.uint8)
+                          ).to(dev)
+    xf = torch.from_numpy(rng.random((2, 251, 251), dtype=np.float32)
+                          ).to(dev)
+    wf = torch.from_numpy(rng.random((2, 252, 251), dtype=np.float32)
+                          ).to(dev)
+    torch.cuda.synchronize()
+
+    kernel_builds = radon.trace_count(kind="kernel")
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    ST.reset_launch_counts()
+    t0 = time.perf_counter()
+    # -- the serve CLI (K5) ------------------------------------------------
+    served = serve.main(["--mode", "radon", "--n", str(n), "--batch",
+                         str(b), "--stream-rows", str(sr), "--iters",
+                         str(SERVE_ITERS), "--device", "cuda"])
+    # -- the raw functions with stream_impl="grid" (K4) ---------------------
+    r_grid = S.dprt_raw(imgs, m_block=64, stream_rows=sr, stream_impl="grid")
+    back_grid = S.idprt_raw(r_grid, m_block=64, stream_rows=sr,
+                            stream_impl="grid")
+    z_grid = S.skew_sum_raw(r_grid[:, :n], -1, m_block=64, stream_rows=sr,
+                            stream_impl="grid")   # the adjoint's core
+    # -- the acceptance image, uint8, gradient, pipeline (K5) --------------
+    op2 = radon.DPRT((n2, n2), torch.int32, stream_rows=sr)
+    r2 = op2(f2)
+    back2 = op2.inverse(r2)
+    op8 = radon.DPRT((n, n), torch.uint8, stream_rows=sr)
+    r8 = op8(u8)
+    back8 = op8.inverse(r8)
+    opf = radon.DPRT(tuple(xf.shape), torch.float32, stream_rows=64)
+    x = xf.clone().requires_grad_(True)
+    (wf * opf(x)).sum().backward()
+    piped = op2.plan.pipeline(f2, "mul", w2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: v for key, v in ST.IMPL_MODE_LAUNCHES.items() if v}
+    k1, k2 = dict(S.MODE_LAUNCHES), dict(P.OP_LAUNCHES)
+
+    # serve: 1 warm + SERVE_ITERS each way; then N=2053, uint8, the
+    # gradient's forward and adjoint (core), the staged mul pipeline
+    want = {("dma", "forward"): 1 + SERVE_ITERS + 1 + 1 + 1 + 1,
+            ("dma", "inverse"): 1 + SERVE_ITERS + 1 + 1 + 1,
+            ("dma", "core"): 1,
+            ("grid", "forward"): 1, ("grid", "inverse"): 1,
+            ("grid", "core"): 1}
+    if launches != want:
+        fail(f"streamed launches on the giant-N path {launches}, expected "
+             f"{want}")
+    if any(k1.values()) or any(k2.values()):
+        fail(f"the giant-N path launched K1 {k1} / K2 {k2}")
+    if radon.trace_count(kind="kernel") != kernel_builds:
+        fail("the giant-N path rebuilt a kernel")
+    log(f"giant-N path: streamed launches {launches}, K1 0, K2 0, zero "
+        f"builds; {wall:.2f} s host wall for the whole path")
+
+    # -- checks (their own launches are not counted) ------------------------
+    if tuple(served.shape) != (b, n + 1, n) or served.dtype != torch.int32:
+        fail(f"serve gave {tuple(served.shape)} {served.dtype}")
+    if not torch.equal(r_grid, served):
+        fail("K4 (grid) projections differ from K5's (serve)")
+    if not torch.equal(back_grid, imgs):
+        fail("K4 round trip is not bit-exact")
+    check_close("K4 core vs plain", z_grid[:1],
+                ST.stream_plain(r_grid[:1, :n].contiguous(), sign=-1,
+                                mode="core", stream_rows=sr), n)
+    check_close("served projections vs plain", served[:1],
+                ST.stream_plain(imgs[:1].contiguous(), sign=1,
+                                mode="forward", stream_rows=sr), n)
+    f2n = f2.cpu().numpy().astype(np.int64)
+    r2n = r2.cpu().numpy()
+    cols = np.arange(n2)
+    for m in (0, 1, n2 - 1):
+        want_m = np.zeros(n2, dtype=np.int64)
+        for i in range(n2):
+            want_m += f2n[i, (cols + m * i) % n2]
+        if not np.array_equal(r2n[m], want_m):
+            fail(f"N={n2} projection row {m} differs from the oracle")
+    if not np.array_equal(r2n[n2], f2n.sum(axis=1)):
+        fail(f"N={n2} row-sum row differs from the oracle")
+    if not torch.equal(back2, f2):
+        fail(f"N={n2} round trip is not bit-exact")
+    acc8 = accum_dtype_for(torch.uint8, n)
+    if (r8.dtype != acc8 or (n >= 2903 and acc8 != torch.int64)
+            or not torch.equal(back8, u8.to(acc8))):
+        fail(f"uint8 N={n} round trip: {r8.dtype} / {back8.dtype}, not "
+             f"exact in int64")
+    check_close("streamed float32 grad vs op.T", x.grad, opf.T(wf), 251)
+    if not torch.equal(piped, op2.inverse(w2 * op2(f2))):
+        fail("the streamed mul pipeline differs from op.inverse(w * op(f))")
+    log(f"giant-N path: N={n} B={b} serve round trip exact (K5) and equal "
+        f"to K4's; N={n2} oracle rows 0, 1, N-1, N and round trip exact; "
+        f"uint8 N={n} (int64) round trip exact; float32 grad == op.T; "
+        f"streamed mul pipeline exact")
+    return launches
+
+
+def stream_timing_phase(launches: dict, worst: dict) -> list:
+    """K4 and K5 vs their plain version and vs K1 at the giant-N path's
+    shape (N = 4099, B = 4, int32, stream_rows 256), per mode, and K5
+    forward on the uint8 image's int64 accumulators."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.kernels.tuning import pallas_block_spec, stream_tile
+
+    n, b, sr = GIANT_N, GIANT_BATCH, GIANT_STREAM_ROWS
+    _, mb = pallas_block_spec(n)
+    dev = torch.device("cuda")
+    f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    r = S.dprt_raw(f, m_block=mb, stream_rows=sr)
+    corr = (r[:, n, :] - r[:, 0, :].sum(1, keepdim=True,
+                                        dtype=torch.int32)).contiguous()
+    rz = r[:, :n]
+    torch.cuda.synchronize()
+    cases = {
+        "forward": (f, dict(sign=1, mode="forward"),
+                    b * (n * n + (n + 1) * n), b * n ** 3 + b * n * n),
+        "inverse": (rz, dict(sign=-1, mode="inverse", corr=corr),
+                    b * (n * n + n + n * n), b * n ** 3 + 2 * b * n * n),
+        "core": (rz, dict(sign=-1, mode="core"), 2 * b * n * n, b * n ** 3),
+    }
+    replaces = {"grid": "src/repro/kernels/sfdprt.py:396",
+                "dma": "src/repro/kernels/sfdprt.py:457"}
+
+    def bound(nbytes, ops):
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / INT32_ADDS_PER_S
+        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                       else "operations")
+
+    plain = {}
+    for mode, (x, kw, _, _) in cases.items():
+        # the plain version at B = 1, scaled to B (it is linear in B)
+        one = x[:1]
+        kw1 = dict(kw, corr=kw["corr"][:1]) if "corr" in kw else kw
+        plain[mode] = b * cuda_ms(
+            lambda: ST.stream_plain(one, stream_rows=sr, **kw1),
+            reps=1, warm=0)
+    rows = []
+    for impl in ST.STREAM_IMPLS:
+        for mode, (x, kw, elems, ops) in cases.items():
+            stage, mbe = stream_tile(n, n, 4, sr, mb, n + 1 if mode ==
+                                     "forward" else n, impl)
+            k_ms = cuda_ms(lambda: ST.stream_raw(
+                x, stream_rows=sr, m_block=mb, stream_impl=impl, **kw),
+                reps=GIANT_TIMING_REPS, warm=1)
+            b_ms, by = bound(4 * elems, ops)
+            rows.append({
+                "name": f"stream_kernel[{impl},{mode}]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/stream.cu",
+                "replaces": replaces[impl],
+                "launches": launches.get((impl, mode), 0),
+                "max_abs_err": worst.get(f"{impl},{mode}", 0.0),
+                "ms": k_ms,
+                "plain_ms": plain[mode],
+                "plain_ms_note": "B=1 run x B",
+                "bound_ms": b_ms,
+                "bound_by": by,
+                # no PyTorch call computes the skew-sum
+                "library_ms": None,
+                "shape": f"N={n} B={b} int32 stream_rows={sr}",
+                "stage_rows": stage,
+                "m_block": mbe,
+                "decomposition": f"block = (image, {mbe} directions x all "
+                                 f"{n} columns), 1024 threads, "
+                                 f"{'2 stages' if impl == 'dma' else '1 stage'}"
+                                 f" of {stage} rows",
+            })
+            log(f"timing stream {impl} {mode}: kernel {k_ms:.4f} ms, plain "
+                f"(B=1 x {b}) {plain[mode]:.4f} ms, bound {b_ms:.4f} ms "
+                f"({by}; N={n} B={b} int32 stream_rows={sr} -> stages of "
+                f"{stage} rows, {mbe} directions per block)")
+    # the comparison: K1 forward at the same shape, through its row tiles
+    # (no stream_rows); K1 is not on this path, so it is a field of the
+    # K5 forward row, not a row of its own
+    th, _ = pallas_block_spec(n)
+    k1_ms = cuda_ms(lambda: S.sfdprt(f, sign=1, mode="forward",
+                                     strip_rows=th, m_block=mb),
+                    reps=GIANT_TIMING_REPS, warm=1)
+    tile = S.smem_tile_rows(n, n, 4, th)
+    for row in rows:
+        if row["name"] == "stream_kernel[dma,forward]":
+            row["k1_same_shape_ms"] = k1_ms
+            row["k1_same_shape"] = (f"K1 forward, row tiles of {tile} rows, "
+                                    f"m_block {mb}")
+    log(f"timing K1 forward at N={n} B={b}: {k1_ms:.4f} ms (row tiles of "
+        f"{tile} rows, m_block {mb}; partial sums in the output between "
+        f"tiles)")
+    # K5 forward on int64 accumulators (the uint8 image), B = 1; an int64
+    # add is counted as two int32 operations (add with carry)
+    u = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (1, n, n))).to(dev)
+    stage, mbe = stream_tile(n, n, 8, sr, mb, n + 1, "dma")
+    k_ms = cuda_ms(lambda: ST.stream_raw(u, sign=1, mode="forward",
+                                         stream_rows=sr, m_block=mb),
+                   reps=GIANT_TIMING_REPS, warm=1)
+    p_ms = cuda_ms(lambda: ST.stream_plain(u, sign=1, mode="forward",
+                                           stream_rows=sr), reps=1, warm=0)
+    b_ms, by = bound(8 * (n * n + (n + 1) * n), 2 * (n ** 3 + n * n))
+    rows.append({
+        "name": "stream_kernel[dma,forward,int64]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
+        "replaces": replaces["dma"],
+        "launches": launches.get(("dma", "forward"), 0),
+        "max_abs_err": worst.get("dma,forward", 0.0),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "bound_note": "an int64 add counted as two int32 operations",
+        "library_ms": None,
+        "shape": f"N={n} B=1 int64 stream_rows={sr}",
+        "stage_rows": stage,
+        "m_block": mbe,
+    })
+    log(f"timing stream dma forward int64 N={n} B=1: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; stages of "
+        f"{stage} rows, {mbe} directions per block)")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -674,10 +1073,13 @@ def main() -> int:
     build_phase()
     worst = kernel_phase()
     pipe_worst = pipeline_kernel_phase()
+    stream_worst = stream_kernel_phase()
     launches = main_path_phase()
     pipe_launches = pipeline_main_path_phase()
+    giant_launches = giant_main_path_phase()
     kernels = timing_phase(launches, worst)
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
+    kernels += stream_timing_phase(giant_launches, stream_worst)
     pipeline_profile_phase()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,20 +17,23 @@ The port of :mod:`repro.core.plan`.  Two layers:
    inputs: zero-embed into the smallest prime ``P >= max(H, W)``,
    transform, and crop back in the inverse, so
    ``plan.inverse(plan.forward(f)) == f`` bit-exactly for integer
-   images.  ``block_rows`` runs the strip decomposition one strip at a
-   time (one K1 launch per strip with its ``row_offset`` on the ``cuda``
-   backend, a torch Horner scan elsewhere); ``block_batch`` runs a stack
-   through the backend in chunks.
+   images.  ``stream_rows`` streams the image through ONE launch of the
+   streamed kernel (K5) in strips on backends that declare
+   ``takes_stream_rows`` (``cuda``); on the others it degrades to the
+   ``block_rows`` scan at the same strip height.  ``block_rows`` runs the
+   strip decomposition one strip at a time (one K1 launch per strip with
+   its ``row_offset`` on the ``cuda`` backend, a torch Horner scan
+   elsewhere); ``block_batch`` runs a stack through the backend in
+   chunks.
 
 ``RadonPlan.pipeline`` runs forward -> per-direction op -> inverse as
 one call of the fused pipeline kernel K2 on backends that declare the
 ``pipeline`` capability (``cuda``), and as the staged fallback --
 forward, exact 1-D stage, inverse -- everywhere else and under
-``block_rows``; both give the same integers.
+``block_rows`` or ``stream_rows``; both give the same integers.
 
-Not ported yet: ``stream_rows`` (the streamed kernels K4/K5, ROADMAP
-Queue 1 item 7), ``mesh`` and the sharded backends (item 9) raise
-``NotImplementedError``.
+Not ported yet: ``mesh`` and the sharded backends (ROADMAP Queue 1 item
+9) raise ``NotImplementedError``.
 
 Plans are cached by (shape, dtype, method, knobs) in a bounded LRU
 (``REPRO_PLAN_CACHE_MAXSIZE``, default 512) with hit/miss/eviction
@@ -51,7 +54,7 @@ from . import geometry as G
 from .dprt import (_skew_sum_gather, _skew_sum_horner, _skew_sum_strips,
                    accum_dtype_for, align_partial, as_dtype, dtype_kind,
                    dtype_name, strip_partial)
-from ..kernels.tuning import resolve_blocks
+from ..kernels.tuning import check_strip_knobs, resolve_blocks
 
 __all__ = [
     "Backend",
@@ -77,8 +80,6 @@ METHOD_ALIASES = {"pallas": "cuda"}
 
 MESH_TODO = ("mesh and the sharded backends are not ported yet: ROADMAP "
              "Queue 1 item 9")
-STREAM_ROWS_TODO = ("stream_rows (the streamed kernels K4/K5) is not "
-                    "ported yet: ROADMAP Queue 1 item 7")
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +91,8 @@ class Backend:
 
     All callables share the keyword surface
     ``(x, *, strip_rows=None, m_block=None, mesh=None)`` (plus ``sign``
-    for ``skew_sum``); adapters ignore knobs they do not use.  Every
+    for ``skew_sum``, and ``stream_rows`` on backends that declare
+    ``takes_stream_rows``); adapters ignore knobs they do not use.  Every
     callable takes ``(…, N, N)`` stacks; ``batched_native`` marks the
     backends that transform a whole stack in one kernel launch.
     """
@@ -281,9 +283,11 @@ def _strips_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
 
 
 # the kernels package imports core, so the cuda adapters import it lazily
-def _cuda_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+def _cuda_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None,
+               stream_rows=None):
     from ..kernels.ops import skew_sum_cuda
-    return skew_sum_cuda(g, sign, strip_rows=strip_rows, m_block=m_block)
+    return skew_sum_cuda(g, sign, strip_rows=strip_rows, m_block=m_block,
+                         stream_rows=stream_rows)
 
 
 def _cuda_skew_strip(g, sign, *, row_offset, strip_rows=None, m_block=None):
@@ -292,18 +296,22 @@ def _cuda_skew_strip(g, sign, *, row_offset, strip_rows=None, m_block=None):
                                strip_rows=strip_rows, m_block=m_block)
 
 
-def _cuda_forward(f, *, strip_rows=None, m_block=None, mesh=None):
+def _cuda_forward(f, *, strip_rows=None, m_block=None, mesh=None,
+                  stream_rows=None):
     from ..kernels.ops import dprt_cuda
-    return dprt_cuda(f, strip_rows=strip_rows, m_block=m_block)
+    return dprt_cuda(f, strip_rows=strip_rows, m_block=m_block,
+                     stream_rows=stream_rows)
 
 
-def _cuda_inverse(r, *, strip_rows=None, m_block=None, mesh=None):
+def _cuda_inverse(r, *, strip_rows=None, m_block=None, mesh=None,
+                  stream_rows=None):
     from ..kernels.ops import idprt_cuda
-    return idprt_cuda(r, strip_rows=strip_rows, m_block=m_block)
+    return idprt_cuda(r, strip_rows=strip_rows, m_block=m_block,
+                      stream_rows=stream_rows)
 
 
 def _cuda_pipeline(fp, op, operand, operand_form, *, strip_rows=None,
-                   m_block=None, mesh=None):
+                   m_block=None, mesh=None, stream_rows=None):
     # m_block here would be the PIPELINE direction block (its own tune
     # table), distinct from K1's m_block; the plan passes none through
     from ..kernels.ops import projection_pipeline_cuda
@@ -348,10 +356,12 @@ register_backend(Backend(
     pipeline=_cuda_pipeline,
     batched_native=True,
     takes_m_block=True,
+    takes_stream_rows=True,
     dtype_kinds=("i", "u", "f"),
     priority=100,
-    note="hand-written Hopper kernels: SFDPRT K1 (one launch per stack) "
-         "and pipeline K2; plain torch versions on CPU tensors",
+    note="hand-written Hopper kernels: SFDPRT K1 (one launch per stack), "
+         "streamed K4/K5 (stream_rows) and pipeline K2; plain torch "
+         "versions on CPU tensors",
 ))
 
 
@@ -431,7 +441,10 @@ class RadonPlan:
     m_block: Optional[int] = None
     batch_impl: str = "auto"
     block_rows: Optional[int] = None
-    stream_rows: Optional[int] = None  # always None: not ported (item 7)
+    #: stream strips of this height through ONE launch of the streamed
+    #: kernel on backends declaring ``takes_stream_rows``; other backends
+    #: degrade to the ``block_rows`` scan with the same strip height
+    stream_rows: Optional[int] = None
     block_batch: Optional[int] = None
     mesh: Optional[object] = None      # always None: not ported (item 9)
     dtype_name: Optional[str] = None
@@ -441,31 +454,47 @@ class RadonPlan:
         return get_backend(self.method)
 
     def _knobs(self) -> dict:
-        return {"strip_rows": self.strip_rows, "m_block": self.m_block,
-                "mesh": self.mesh}
+        knobs = {"strip_rows": self.strip_rows, "m_block": self.m_block,
+                 "mesh": self.mesh}
+        if self.backend.takes_stream_rows:
+            knobs["stream_rows"] = self.stream_rows
+        return knobs
+
+    @property
+    def _scan_rows(self) -> Optional[int]:
+        """Strip height when the scan-of-launches fallback must run:
+        ``block_rows`` always scans; ``stream_rows`` scans on a backend
+        without the streamed kernel.  ``None``: the backend runs
+        natively (one launch, streamed or not)."""
+        if self.block_rows is not None:
+            return self.block_rows
+        if self.stream_rows is not None \
+                and not self.backend.takes_stream_rows:
+            return self.stream_rows
+        return None
 
     # -- prime domain; every helper takes (N, N) or (…, N, N) ------------
     def _blocked(self, x: torch.Tensor, sign: int) -> torch.Tensor:
         strip = self.backend.skew_strip
         strip_fn = None if strip is None else functools.partial(
             strip, strip_rows=self.strip_rows, m_block=self.m_block)
-        return _blocked_skew_sum(x, sign, self.block_rows,
+        return _blocked_skew_sum(x, sign, self._scan_rows,
                                  accum_dtype_for(x.dtype, x.shape[-1]),
                                  strip_fn)
 
     def _forward_prime(self, fp: torch.Tensor) -> torch.Tensor:
-        if self.block_rows is not None:
+        if self._scan_rows is not None:
             return _attach_row_sum(self._blocked(fp, +1), fp)
         return self.backend.forward(fp, **self._knobs())
 
     def _inverse_prime(self, r: torch.Tensor) -> torch.Tensor:
-        if self.block_rows is not None:
+        if self._scan_rows is not None:
             n = r.shape[-1]
             return _inverse_epilogue(self._blocked(r[..., :n, :], -1), r, n)
         return self.backend.inverse(r, **self._knobs())
 
     def _skew_prime(self, x: torch.Tensor, sign: int) -> torch.Tensor:
-        if self.block_rows is not None:
+        if self._scan_rows is not None:
             return self._blocked(x, sign)
         return self.backend.skew_sum(x, sign, **self._knobs())
 
@@ -484,7 +513,7 @@ class RadonPlan:
         has one, else ``batch_impl`` -- ``map`` loops image by image,
         ``vmap``/``auto`` hand the whole stack to the rank-polymorphic
         prime-domain path (the batch dimension written out)."""
-        if native is not None and self.block_rows is None:
+        if native is not None and self._scan_rows is None:
             fn = lambda chunk: native(chunk, **self._knobs())  # noqa: E731
         elif self.batch_impl == "map":
             fn = lambda chunk: torch.stack([one(x) for x in chunk])  # noqa
@@ -576,9 +605,10 @@ class RadonPlan:
 
         Backends with the ``pipeline`` capability run it as one kernel
         call (K2 on ``cuda``); every other backend, and any plan with
-        ``block_rows``, takes the STAGED fallback -- forward, exact 1-D
-        stage, inverse through the same registry -- with the same
-        integers.  ``"conv"`` needs native prime geometry (embedding
+        ``block_rows`` or ``stream_rows``, takes the STAGED fallback --
+        forward, exact 1-D stage, inverse through the same registry (on a
+        streamed ``cuda`` plan: K5 forward, the 1-D stage, K5 inverse) --
+        with the same integers.  ``"conv"`` needs native prime geometry (embedding
         would change the convolution's torus; :mod:`repro_torch.core.
         conv` folds other geometries before it gets here);
         ``"mul"``/``"none"`` fuse the literal embed -> transform ->
@@ -615,7 +645,8 @@ class RadonPlan:
                     f"not match plan batch {g.batch}")
 
         be = self.backend
-        if be.pipeline is not None and self.block_rows is None:
+        if be.pipeline is not None and self.block_rows is None \
+                and self.stream_rows is None:
             fp = G.embed(f, g)
             if g.batched and self.block_batch is not None:
                 if (operand is None or operand.ndim == 2
@@ -645,7 +676,9 @@ class RadonPlan:
                 else:  # one shared (P, P) operand for a batched plan
                     rg = get_plan((p, p), self.dtype_name, self.method,
                                   strip_rows=self.strip_rows,
-                                  m_block=self.m_block).forward(operand)
+                                  m_block=self.m_block,
+                                  stream_rows=self.stream_rows
+                                  ).forward(operand)
             else:
                 rg = operand
             from .conv import circ_conv1d_exact
@@ -797,6 +830,7 @@ def set_plan_cache_maxsize(maxsize: Optional[int]) -> None:
 def _build_plan(shape: tuple, dtype_name_: str, method: str,
                 strip_rows: Optional[int], m_block: Optional[int],
                 batch_impl: str, block_rows: Optional[int],
+                stream_rows: Optional[int],
                 block_batch: Optional[int]) -> RadonPlan:
     geom = G.normalize_geometry(shape)
     dtype = as_dtype(dtype_name_)
@@ -812,15 +846,15 @@ def _build_plan(shape: tuple, dtype_name_: str, method: str,
         raise ValueError(f"batch_impl must be auto|map|vmap: {batch_impl!r}")
     itemsize = accum_dtype_for(dtype, geom.prime).itemsize
     th, tm = resolve_blocks(geom.prime, itemsize, strip_rows, m_block,
-                            block_rows=block_rows)
+                            block_rows=block_rows, stream_rows=stream_rows)
     if be.needs_strip_rows or be.takes_m_block:
         strip_rows = th
         m_block = tm if be.takes_m_block else None
     return RadonPlan(geometry=geom, method=be.name,
                      requested_method=requested, strip_rows=strip_rows,
                      m_block=m_block, batch_impl=batch_impl,
-                     block_rows=block_rows, block_batch=block_batch,
-                     dtype_name=dtype_name(dtype))
+                     block_rows=block_rows, stream_rows=stream_rows,
+                     block_batch=block_batch, dtype_name=dtype_name(dtype))
 
 
 def get_plan(shape, dtype, method: str = "auto", *,
@@ -833,17 +867,18 @@ def get_plan(shape, dtype, method: str = "auto", *,
              mesh=None) -> RadonPlan:
     """Cached :class:`RadonPlan` for an input shape/dtype and knobs.
 
-    ``stream_rows`` and ``mesh`` are accepted for the reference's
-    signature and raise ``NotImplementedError`` (not ported yet)."""
+    The ``block_rows`` / ``stream_rows`` ValueErrors fire first, for
+    every backend.  ``mesh`` is accepted for the reference's signature
+    and raises ``NotImplementedError`` (not ported yet)."""
+    check_strip_knobs(block_rows, stream_rows)
     if mesh is not None:
         raise NotImplementedError(MESH_TODO)
-    if stream_rows is not None:
-        raise NotImplementedError(STREAM_ROWS_TODO)
     shape = tuple(int(s) for s in shape)
     key = (shape, dtype_name(as_dtype(dtype)), method,
            None if strip_rows is None else int(strip_rows),
            None if m_block is None else int(m_block), batch_impl,
            None if block_rows is None else int(block_rows),
+           None if stream_rows is None else int(stream_rows),
            None if block_batch is None else int(block_batch))
     return _PLAN_CACHE.get_or_build(key, lambda: _build_plan(*key))
 

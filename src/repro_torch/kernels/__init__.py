@@ -3,23 +3,26 @@
 K1, the fused batched SFDPRT kernel, lives in ``csrc/sfdprt.cu`` with
 its launcher and plain version in :mod:`.sfdprt`; K2, the fused
 projection-domain pipeline, in ``csrc/pipeline.cu`` with
-:mod:`.pipeline`.  :mod:`.ops` wraps both with block resolution
-(:mod:`.tuning`) and is what the plan's ``cuda`` backend dispatches
-to.  :mod:`._build` compiles the CUDA sources at first use.
+:mod:`.pipeline`; K4/K5, the streamed kernel of the giant-N path, in
+``csrc/stream.cu`` with :mod:`.stream`.  :mod:`.ops` wraps them with
+block resolution (:mod:`.tuning`) and is what the plan's ``cuda``
+backend dispatches to.  :mod:`._build` compiles the CUDA sources at first use.
 """
 from .ops import (dprt_cuda, dprt_cuda_strip, idprt_cuda,
                   pipeline_tail_cuda, projection_pipeline_cuda,
                   skew_sum_cuda, skew_sum_cuda_strip)
 from .ref import dprt_ref, idprt_ref, skew_sum_ref
 from .sfdprt import isfdprt_core
+from .stream import stream_plain, stream_raw
 from .tuning import (PALLAS_TUNE, PIPELINE_TUNE, pallas_block_spec,
                      pipeline_block_spec, resolve_blocks,
-                     resolve_pipeline_blocks)
+                     resolve_pipeline_blocks, stream_tile)
 
 __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
            "skew_sum_cuda_strip", "dprt_cuda_strip", "isfdprt_core",
            "projection_pipeline_cuda", "pipeline_tail_cuda",
            "dprt_ref", "idprt_ref", "skew_sum_ref",
+           "stream_raw", "stream_plain", "stream_tile",
            "PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "PIPELINE_TUNE", "pipeline_block_spec",
            "resolve_pipeline_blocks"]

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: library name -> its sources under csrc/
 LIBRARIES: Dict[str, tuple] = {"sfdprt": ("sfdprt.cu",),
-                               "pipeline": ("pipeline.cu",)}
+                               "pipeline": ("pipeline.cu",),
+                               "stream": ("stream.cu",)}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -35,10 +35,13 @@
 // costs a shared-memory load and an index step as well; tiling d and
 // m per thread to reuse loads is left to a later change.
 //
-// Integer rules that differ from JAX: C '/' rounds toward zero, so the
-// inverse's divide is corrected to round toward minus infinity (JAX
-// '//'); C '%' takes the dividend's sign, so every index here is built
-// from non-negative terms (the host reduces row_offset mod N first).
+// Integer rules that differ from JAX: signed overflow is undefined in C++
+// while JAX wraps, so every integer sum (the skew-sum, the row-sum row and
+// Z + corr before the divide) runs in the unsigned type of the same width
+// and is cast back; C '/' rounds toward zero, so the inverse's divide is
+// corrected to round toward minus infinity (JAX '//') on the signed value;
+// C '%' takes the dividend's sign, so every index here is built from
+// non-negative terms (the host reduces row_offset mod N first).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -51,6 +54,19 @@ constexpr int kCore = 0;
 constexpr int kForward = 1;
 constexpr int kInverse = 2;
 constexpr int kThreads = 256;
+
+// The arithmetic type: the unsigned type of the same width for integers
+// (wrapping, defined), the type itself for floats.
+template <typename T, bool = std::is_integral<T>::value>
+struct Arith {
+  using type = T;
+};
+template <typename T>
+struct Arith<T, true> {
+  using type = typename std::make_unsigned<T>::type;
+};
+template <typename T>
+using arith_t = typename Arith<T>::type;
 
 template <typename T>
 __device__ __forceinline__ T divide_by_n(T total, int n) {
@@ -69,6 +85,7 @@ sfdprt_kernel(const T* __restrict__ g, long long g_bstride,
               const T* __restrict__ corr, T* __restrict__ out, int rows,
               int n, int out_rows, int m_block, int n_mblocks, int tile_rows,
               int sign, int mode, int off_mod, long long row_offset) {
+  using U = arith_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
 
@@ -94,13 +111,13 @@ sfdprt_kernel(const T* __restrict__ g, long long g_bstride,
       const int d = w - ml * n;
       const int m = m0 + ml;
       const long long o = static_cast<long long>(m) * n + d;
-      T acc = first ? T(0) : ob[o];
+      U acc = first ? U(0) : static_cast<U>(ob[o]);
       if (m < n) {
         const int step = sign > 0 ? m : (n - m) % n;  // <sign*m>_N
         int idx = static_cast<int>((d + static_cast<long long>(step) * r0) % n);
         const T* row = tile;
         for (int i = 0; i < ht; ++i, row += n) {
-          acc += row[idx];
+          acc += static_cast<U>(row[idx]);
           idx += step;
           if (idx >= n) idx -= n;
         }
@@ -108,13 +125,17 @@ sfdprt_kernel(const T* __restrict__ g, long long g_bstride,
         const long long lr = static_cast<long long>(d) - row_offset - t0;
         if (lr >= 0 && lr < ht) {
           const T* row = tile + lr * n;
-          for (int j = 0; j < n; ++j) acc += row[j];
+          for (int j = 0; j < n; ++j) acc += static_cast<U>(row[j]);
         }
       }
       if (last && mode == kInverse) {
-        acc = divide_by_n(acc + corr[static_cast<long long>(b) * n + m], n);
+        ob[o] = divide_by_n(
+            static_cast<T>(acc + static_cast<U>(
+                                     corr[static_cast<long long>(b) * n + m])),
+            n);
+      } else {
+        ob[o] = static_cast<T>(acc);
       }
-      ob[o] = acc;
     }
   }
 }

@@ -1,5 +1,5 @@
-"""Public wrappers around K1, the fused SFDPRT kernel, and K2, the fused
-projection-domain pipeline.
+"""Public wrappers around K1, the fused SFDPRT kernel, K4/K5, the
+streamed kernel, and K2, the fused projection-domain pipeline.
 
 The port of :mod:`repro.kernels.ops`: the layer the plan's ``cuda``
 backend dispatches to.  Each wrapper takes a single (N, N) image or a
@@ -9,12 +9,15 @@ shapes through :mod:`.tuning` when not given, and accumulates in
 epilogues run inside K1; :func:`projection_pipeline_cuda` runs forward,
 per-direction op and inverse in one K2 call.
 
+``stream_rows`` on the five transform wrappers streams the image
+through the streamed kernel (:mod:`.stream`, K5 -- the reference's
+compiled default ``stream_impl="dma"``) in one launch instead of K1.
+
 A CUDA tensor always goes through the kernel (or raises); a CPU tensor
 takes the kernel's plain version (:func:`.sfdprt.sfdprt_plain`,
-:func:`.pipeline.pipeline_plain`).  Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP item: ``stream_rows`` (the
-streamed kernels K4/K5, item 7) and :func:`pipeline_tail_cuda` (the
-mesh pipeline's tail, K3, item 9).
+:func:`.stream.stream_plain`, :func:`.pipeline.pipeline_plain`).  Not
+ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
+:func:`pipeline_tail_cuda` (the mesh pipeline's tail, K3, item 9).
 """
 from __future__ import annotations
 
@@ -38,11 +41,8 @@ PIPELINE_TAIL_TODO = ("pipeline_tail_cuda (the mesh pipeline's tail, "
 def _resolve_blocks(n: int, strip_rows: Optional[int],
                     m_block: Optional[int], dtype,
                     stream_rows: Optional[int] = None) -> tuple[int, int]:
-    if stream_rows is not None:
-        from ..core.plan import STREAM_ROWS_TODO
-        raise NotImplementedError(STREAM_ROWS_TODO)
     return resolve_blocks(n, accum_dtype_for(dtype, n).itemsize,
-                          strip_rows, m_block)
+                          strip_rows, m_block, stream_rows=stream_rows)
 
 
 def skew_sum_cuda(g: torch.Tensor, sign: int = 1,
@@ -56,7 +56,8 @@ def skew_sum_cuda(g: torch.Tensor, sign: int = 1,
     kernel)."""
     h, mb = _resolve_blocks(g.shape[-1], strip_rows, m_block, g.dtype,
                             stream_rows)
-    return skew_sum_raw(g, sign=sign, strip_rows=h, m_block=mb)
+    return skew_sum_raw(g, sign=sign, strip_rows=h, m_block=mb,
+                        stream_rows=stream_rows)
 
 
 def skew_sum_cuda_strip(g: torch.Tensor, sign: int = 1, *,
@@ -72,7 +73,8 @@ def skew_sum_cuda_strip(g: torch.Tensor, sign: int = 1, *,
     n = g.shape[-1]
     h, mb = _resolve_blocks(n, strip_rows, m_block, g.dtype, stream_rows)
     return skew_sum_raw(g, sign=sign, strip_rows=h, m_block=mb,
-                        row_offset=row_offset)
+                        row_offset=row_offset,
+                        stream_rows=stream_rows)
 
 
 def dprt_cuda_strip(g: torch.Tensor, *, row_offset: int = 0,
@@ -87,7 +89,8 @@ def dprt_cuda_strip(g: torch.Tensor, *, row_offset: int = 0,
     single = g.ndim == 2
     gb = g[None] if single else g
     h, mb = _resolve_blocks(n, strip_rows, m_block, g.dtype, stream_rows)
-    out = dprt_raw(gb, strip_rows=h, m_block=mb, row_offset=row_offset)
+    out = dprt_raw(gb, strip_rows=h, m_block=mb, row_offset=row_offset,
+                   stream_rows=stream_rows)
     return out[0] if single else out
 
 
@@ -106,7 +109,8 @@ def dprt_cuda(f: torch.Tensor, strip_rows: Optional[int] = None,
     if not is_prime(n):
         raise ValueError(f"DPRT needs prime N, got {n}")
     h, mb = _resolve_blocks(n, strip_rows, m_block, fb.dtype, stream_rows)
-    out = dprt_raw(fb, strip_rows=h, m_block=mb)
+    out = dprt_raw(fb, strip_rows=h, m_block=mb,
+                   stream_rows=stream_rows)
     return out[0] if single else out
 
 
@@ -124,7 +128,8 @@ def idprt_cuda(r: torch.Tensor, strip_rows: Optional[int] = None,
             f"iDPRT input must be (B, N+1, N) or (N+1, N) with N prime: "
             f"{tuple(r.shape)}")
     h, mb = _resolve_blocks(n, strip_rows, m_block, rb.dtype, stream_rows)
-    out = idprt_raw(rb, strip_rows=h, m_block=mb)
+    out = idprt_raw(rb, strip_rows=h, m_block=mb,
+                    stream_rows=stream_rows)
     return out[0] if single else out
 
 

@@ -18,7 +18,9 @@ the direct, chunked-over-directions gather-and-sum of the same modes,
 which is also what ``chip_smoke.py`` holds the kernel against on the
 card.  ``strip_rows`` and ``m_block`` are the kernel's tiles (the rows
 staged per step -- capped by the shared memory a block holds -- and the
-directions per thread block); they change no integer result.
+directions per thread block); they change no integer result.  With
+``stream_rows`` the raw functions below launch the streamed kernel
+(:mod:`.stream`, K4/K5) instead of K1.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from ..core.dprt import accum_dtype_for
 from . import _build
+from .stream import stream_raw
 
 __all__ = ["sfdprt", "sfdprt_plain", "skew_sum_raw", "dprt_raw",
            "idprt_raw", "isfdprt_core", "smem_tile_rows", "MODE_LAUNCHES",
@@ -197,44 +200,67 @@ def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _skew(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
+          m_block: int, corr=None, row_offset=None, stream_rows=None,
+          stream_impl=None) -> torch.Tensor:
+    """K1, or with ``stream_rows`` the streamed kernel K4/K5 (and then
+    K1 is not launched)."""
+    if stream_rows is not None:
+        return stream_raw(g, sign=sign, mode=mode,
+                          stream_rows=int(stream_rows), m_block=m_block,
+                          corr=corr, row_offset=row_offset or 0,
+                          stream_impl=stream_impl)
+    return sfdprt(g, sign=sign, mode=mode, strip_rows=strip_rows,
+                  m_block=m_block, corr=corr, row_offset=row_offset or 0)
+
+
 def skew_sum_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
-                 m_block: int = 8, row_offset=None) -> torch.Tensor:
+                 m_block: int = 8, row_offset=None,
+                 stream_rows: int | None = None,
+                 stream_impl: str | None = None) -> torch.Tensor:
     """Bare skew-sum via K1 (core mode): (rows, N) or (B, rows, N), N
     prime, to the same rank with N direction rows in the accumulator
     dtype; ``rows < N`` with a ``row_offset`` gives the partial of a
-    row strip aligned to global rows."""
+    row strip aligned to global rows.  ``stream_rows`` streams the rows
+    through K4/K5 (``stream_impl`` "grid" or "dma", default "dma")."""
     single = g.ndim == 2
     gb = g[None] if single else g
     n = gb.shape[-1]
     ga = _rows_contiguous(gb.to(accum_dtype_for(g.dtype, n)))
-    out = sfdprt(ga, sign=sign, mode="core", strip_rows=strip_rows,
-                 m_block=m_block, row_offset=row_offset or 0)
+    out = _skew(ga, sign=sign, mode="core", strip_rows=strip_rows,
+                m_block=m_block, row_offset=row_offset,
+                stream_rows=stream_rows, stream_impl=stream_impl)
     return out[0] if single else out
 
 
 def dprt_raw(f: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
-             row_offset=None) -> torch.Tensor:
+             row_offset=None, stream_rows: int | None = None,
+             stream_impl: str | None = None) -> torch.Tensor:
     """Fused batched forward DPRT: (B, N, N) -> (B, N+1, N) in one launch,
     the R(N, d) row produced in-kernel.  With ``rows < N`` and a
-    ``row_offset`` this is the partial forward of a row strip."""
+    ``row_offset`` this is the partial forward of a row strip;
+    ``stream_rows`` runs it through K4/K5."""
     n = f.shape[-1]
     fa = _rows_contiguous(f.to(accum_dtype_for(f.dtype, n)))
-    return sfdprt(fa, sign=1, mode="forward", strip_rows=strip_rows,
-                  m_block=m_block, row_offset=row_offset or 0)
+    return _skew(fa, sign=1, mode="forward", strip_rows=strip_rows,
+                 m_block=m_block, row_offset=row_offset,
+                 stream_rows=stream_rows, stream_impl=stream_impl)
 
 
-def idprt_raw(r: torch.Tensor, strip_rows: int = 16,
-              m_block: int = 8) -> torch.Tensor:
+def idprt_raw(r: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
+              stream_rows: int | None = None,
+              stream_impl: str | None = None) -> torch.Tensor:
     """Fused batched inverse DPRT: (B, N+1, N) -> (B, N, N) in one
     launch; the -S + R(N, i) correction and the floor divide by N run
-    in-kernel on the last tile."""
+    in-kernel after the last tile (or strip, with ``stream_rows``)."""
     n = r.shape[-1]
     acc = accum_dtype_for(r.dtype, n)
     ra = _rows_contiguous(r.to(acc))
     corr = (ra[:, n, :] - ra[:, 0, :].sum(1, keepdim=True, dtype=acc))
-    return sfdprt(ra[:, :n, :], sign=-1, mode="inverse",
-                  strip_rows=strip_rows, m_block=m_block,
-                  corr=corr.contiguous())
+    return _skew(ra[:, :n, :], sign=-1, mode="inverse",
+                 strip_rows=strip_rows, m_block=m_block,
+                 corr=corr.contiguous(), stream_rows=stream_rows,
+                 stream_impl=stream_impl)
 
 
 # The inverse core (iSFDPRT_core) is the skew-sum with circular right

@@ -1,0 +1,199 @@
+"""K4/K5, the streamed SFDPRT kernel: its launcher and its plain version.
+
+The port of :func:`repro.kernels.sfdprt._pallas_stream_call`.  One CUDA
+kernel template (``csrc/stream.cu``, CUDA C++ for ``sm_90a``) replaces
+both TPU kernels of the giant-N path, in K1's three modes:
+
+* ``stream_impl="grid"`` -- ``repro/kernels/sfdprt.py:_stream_grid_kernel``
+  (K4): each stage of rows is loaded synchronously, then summed;
+* ``stream_impl="dma"`` -- ``_stream_dma_kernel`` (K5), the default as it
+  is the reference's compiled default: the next stage is copied with
+  ``cp.async`` while the current one is summed.
+
+Either way one launch streams the whole ``(B, rows, N)`` operand, keeps
+the partial sums in shared memory for the whole strip loop and writes
+the output once.  :func:`stream_raw` is the wrapper: on a CUDA tensor it
+launches the kernel or raises (no fallback to K1 or to the plain
+version); on a CPU tensor it runs :func:`stream_plain`, the same function
+in plain PyTorch in the streamed structure, which is also what
+``chip_smoke.py`` holds the kernel against on the card.
+
+``stream_rows`` is the reference's strip height H.  On Hopper it caps
+the rows of one shared-memory stage (:func:`.tuning.stream_tile`: at
+N = 4099 int32 a stage holds 3 rows); ``m_block`` is capped the same
+way.  Neither changes an integer result.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .tuning import stream_tile
+
+__all__ = ["stream_raw", "stream_plain", "STREAM_IMPLS", "LAUNCHES",
+           "IMPL_MODE_LAUNCHES", "reset_launch_counts"]
+
+STREAM_IMPLS = ("grid", "dma")
+
+#: kernel launches since the last reset; IMPL_MODE_LAUNCHES splits the
+#: same count by (stream_impl, mode).  Only :func:`stream_raw` adds to
+#: them, once per launch of the CUDA kernel.
+LAUNCHES = 0
+IMPL_MODE_LAUNCHES = {(impl, mode): 0 for impl in STREAM_IMPLS
+                      for mode in ("core", "forward", "inverse")}
+
+_IMPLS = {"grid": 0, "dma": 1}
+_MODES = {"core": 0, "forward": 1, "inverse": 2}
+_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+           torch.float64: 3}
+
+#: elements one chunk of the plain version gathers at a time
+_PLAIN_CHUNK = 1 << 25
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for key in IMPL_MODE_LAUNCHES:
+        IMPL_MODE_LAUNCHES[key] = 0
+
+
+def resolve_impl(stream_impl) -> str:
+    """``None`` -> ``"dma"``; anything but grid/dma raises the
+    reference's ValueError."""
+    if stream_impl is None:
+        return "dma"
+    if stream_impl not in STREAM_IMPLS:
+        raise ValueError(f"stream_impl must be 'grid' or 'dma': "
+                         f"{stream_impl!r}")
+    return stream_impl
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("stream")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.stream_launch.argtypes = [i32, i32, vp, i64, vp, vp, i32, i32, i32,
+                                  i32, i32, i32, i32, i32, i64, vp]
+    lib.stream_launch.restype = i32
+    lib.stream_error_string.argtypes = [i32]
+    lib.stream_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
+           m_block: int) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}: {mode!r}")
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, got {sign}")
+    if (mode == "forward" and sign != 1) or (mode == "inverse"
+                                             and sign != -1):
+        raise ValueError(f"mode {mode!r} fixes sign to "
+                         f"{1 if mode == 'forward' else -1}")
+    if g.ndim != 3 or g.shape[1] < 1 or g.shape[1] > g.shape[2]:
+        raise ValueError(f"operand must be (B, rows <= N, N), got "
+                         f"{tuple(g.shape)}")
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"operand must be in an accumulator dtype "
+                        f"{tuple(_DTYPES)}, got {g.dtype}")
+    if g.stride(2) != 1 or g.stride(1) != g.shape[2]:
+        raise ValueError("operand rows must be contiguous (stride (…, N, 1))")
+    if int(stream_rows) < 1 or int(m_block) < 1:
+        raise ValueError(f"stream_rows/m_block must be >= 1, got "
+                         f"{stream_rows}/{m_block}")
+    if mode == "inverse":
+        b, _, n = g.shape
+        if (corr is None or tuple(corr.shape) != (b, n)
+                or corr.dtype != g.dtype or corr.device != g.device
+                or not corr.is_contiguous()):
+            raise ValueError(f"inverse mode needs a contiguous (B, N) = "
+                             f"({b}, {n}) {g.dtype} corr on {g.device}")
+
+
+def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
+               m_block: int, corr: torch.Tensor | None = None,
+               row_offset: int = 0, stream_impl: str | None = None
+               ) -> torch.Tensor:
+    """Run the streamed kernel over ``g`` (B, rows, N), already in the
+    accumulator dtype, in strips of ``stream_rows`` rows.
+
+    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise.  A
+    CUDA operand launches K4 (``stream_impl="grid"``) or K5 (``"dma"``,
+    the default) once on the current stream, raising if the launch is
+    refused; a CPU operand takes :func:`stream_plain`.
+    """
+    global LAUNCHES
+    impl = resolve_impl(stream_impl)
+    _check(g, sign, mode, corr, stream_rows, m_block)
+    if g.device.type == "cpu":
+        return stream_plain(g, sign=sign, mode=mode,
+                            stream_rows=stream_rows, corr=corr,
+                            row_offset=row_offset)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"K4/K5 run on CUDA or CPU tensors, not "
+                           f"{g.device}")
+    b, rows, n = g.shape
+    out_rows = n + 1 if mode == "forward" else n
+    out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
+    if b == 0:
+        return out
+    stage, mb = stream_tile(n, rows, g.element_size(), stream_rows,
+                            m_block, out_rows, impl)
+    lib = _lib()
+    cuda_stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.stream_launch(
+        _IMPLS[impl], _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
+        None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
+        n, out_rows, mb, stage, int(sign), _MODES[mode], int(row_offset),
+        cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"streamed kernel launch failed ({impl}, {mode}, B={b}, "
+            f"rows={rows}, N={n}, stream_rows={stream_rows}, stage_rows="
+            f"{stage}, m_block={mb}): {lib.stream_error_string(err).decode()}")
+    LAUNCHES += 1
+    IMPL_MODE_LAUNCHES[(impl, mode)] += 1
+    return out
+
+
+def stream_plain(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
+                 corr: torch.Tensor | None = None,
+                 row_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K4/K5 (any device), in the streamed
+    structure: for each strip of ``min(stream_rows, rows)`` rows, gather
+    its partial skew-sum at the strip's global rows into one accumulator
+    and place its row sums; the inverse epilogue runs once at the end."""
+    b, rows, n = g.shape
+    dev = g.device
+    h = max(1, min(int(stream_rows), rows))
+    out_rows = n + 1 if mode == "forward" else n
+    acc = torch.zeros((b, out_rows, n), dtype=g.dtype, device=dev)
+    d = torch.arange(n, device=dev, dtype=torch.int64)
+    for t0 in range(0, rows, h):
+        strip = g[:, t0:t0 + h]
+        ht = strip.shape[1]
+        flat = strip.reshape(b, ht * n)
+        i = torch.arange(ht, device=dev, dtype=torch.int64)
+        glob = i + t0 + int(row_offset)
+        chunk = max(1, _PLAIN_CHUNK // max(1, b * ht * n))
+        for m0 in range(0, n, chunk):
+            ms = torch.arange(m0, min(m0 + chunk, n), device=dev,
+                              dtype=torch.int64)
+            idx = (torch.remainder(d[None, None, :] + sign * ms[:, None, None]
+                                   * glob[None, :, None], n)
+                   + (i * n)[None, :, None])
+            vals = flat[:, idx.reshape(-1)].reshape(b, len(ms), ht, n)
+            acc[:, m0:m0 + len(ms)] += vals.sum(2, dtype=g.dtype)
+        if mode == "forward":
+            keep = (glob >= 0) & (glob < n)
+            acc[:, n, glob[keep]] += strip.sum(2, dtype=g.dtype)[:, keep]
+    if mode != "inverse":
+        return acc
+    total = acc + corr[:, :, None]
+    if g.dtype.is_floating_point:
+        return total / n
+    return torch.div(total, n, rounding_mode="floor")

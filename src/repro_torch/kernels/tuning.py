@@ -14,6 +14,12 @@ owns (K2 further caps it by the shared memory a block can hold), and
 further caps it the same way); integer results depend on neither.  The
 pipeline's ``group`` (the TPU kernel's conv tap group) changes nothing
 on Hopper.  Rows measured on the card replace these in a later change.
+
+:func:`stream_tile` is the Hopper resolution of the streamed kernel's
+tile (K4/K5): how many directions' partial sums a block keeps in shared
+memory and how many rows one of its stages holds.  ``stream_rows`` caps
+the stage height there, it does not set it, and a plan reports the knob
+unchanged.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import warnings
 
 __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "wasted_direction_rows", "PIPELINE_TUNE", "pipeline_block_spec",
-           "resolve_pipeline_blocks"]
+           "resolve_pipeline_blocks", "check_strip_knobs", "STREAM_SMEM_BUDGET", "stream_smem",
+           "stream_tile"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
@@ -83,6 +90,19 @@ def pallas_block_spec(n: int, itemsize: int = 4) -> tuple[int, int]:
     return max(h, 1), m_block
 
 
+def check_strip_knobs(block_rows=None, stream_rows=None) -> None:
+    """The ``block_rows`` / ``stream_rows`` validation of
+    :func:`resolve_blocks` alone (the plan layer runs it first)."""
+    if block_rows is not None and stream_rows is not None:
+        raise ValueError(
+            f"block_rows={block_rows} and stream_rows={stream_rows} are "
+            "mutually exclusive: block_rows scans separate kernel "
+            "launches over row strips (the staged fallback), stream_rows "
+            "streams strips through ONE fused launch. Pick one.")
+    if stream_rows is not None and int(stream_rows) < 1:
+        raise ValueError(f"stream_rows must be >= 1, got {stream_rows}")
+
+
 def resolve_blocks(n: int, itemsize: int = 4,
                    strip_rows=None, m_block=None, block_rows=None,
                    stream_rows=None) -> tuple[int, int]:
@@ -92,19 +112,64 @@ def resolve_blocks(n: int, itemsize: int = 4,
     (the streamed kernel) both partition the image into row strips;
     asking for both is ambiguous and rejected.
     """
-    if block_rows is not None and stream_rows is not None:
-        raise ValueError(
-            f"block_rows={block_rows} and stream_rows={stream_rows} are "
-            "mutually exclusive: block_rows scans separate kernel "
-            "launches over row strips (the staged fallback), stream_rows "
-            "streams strips through ONE fused launch. Pick one.")
-    if stream_rows is not None and int(stream_rows) < 1:
-        raise ValueError(f"stream_rows must be >= 1, got {stream_rows}")
+    check_strip_knobs(block_rows, stream_rows)
     th, tm = pallas_block_spec(n, itemsize)
     h = th if strip_rows is None else int(strip_rows)
     mb = tm if m_block is None else int(m_block)
     if h < 1 or mb < 1:
         raise ValueError(f"strip_rows/m_block must be >= 1, got {h}/{mb}")
+    return h, mb
+
+
+#: shared memory one streamed block may use: the H100's opt-in maximum
+#: per block (227 KB), so one block runs per SM at giant N
+STREAM_SMEM_BUDGET = 227 * 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def stream_smem(n: int, itemsize: int, m_block: int, stage_rows: int,
+                stream_impl: str = "dma") -> int:
+    """Bytes of shared memory a streamed block takes (the layout of
+    ``csrc/stream.cu``): ``m_block`` rows of accumulators, a start-index
+    table, and two stages of ``stage_rows`` rows for ``dma`` (one for
+    ``grid``), each with 16 bytes of slack."""
+    slots = 2 if stream_impl == "dma" else 1
+    return (_align16(m_block * n * itemsize) + _align16(4 * m_block)
+            + slots * _align16(stage_rows * n * itemsize + 16))
+
+
+def stream_tile(n: int, rows: int, itemsize: int, stream_rows: int,
+                m_block: int, out_rows: int,
+                stream_impl: str = "dma") -> tuple[int, int]:
+    """(stage_rows, m_block) the streamed kernel runs with.
+
+    The block's accumulators take at most half of
+    :data:`STREAM_SMEM_BUDGET` (at least one direction), capped by
+    ``m_block`` and the output rows; the stages take the rest, capped by
+    ``stream_rows`` and ``rows``.  Raises ValueError when not one
+    direction and one row fit.  Integer results depend on neither.
+    """
+    row = n * itemsize
+    mb = max(1, min(int(m_block), int(out_rows),
+                    (STREAM_SMEM_BUDGET // 2) // row))
+    fixed = stream_smem(n, itemsize, mb, 0, stream_impl)
+    slots = 2 if stream_impl == "dma" else 1
+    fit = ((STREAM_SMEM_BUDGET - fixed) // slots) // row
+    if fit < 1:
+        raise ValueError(
+            f"the streamed kernel cannot hold one direction and one row of "
+            f"N={n} {itemsize}-byte values in its {STREAM_SMEM_BUDGET}-byte "
+            f"shared-memory budget")
+    h = max(1, min(int(stream_rows), int(rows), fit))
+    while stream_smem(n, itemsize, mb, h, stream_impl) > STREAM_SMEM_BUDGET:
+        h -= 1                  # the 16-byte alignment of the last stage
+    if h < 1:
+        raise ValueError(
+            f"the streamed kernel cannot hold one row of N={n} "
+            f"{itemsize}-byte values beside its accumulators")
     return h, mb
 
 

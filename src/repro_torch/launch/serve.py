@@ -9,6 +9,9 @@ configuration is ``configs/radon_251.py`` (N = 251; ``--smoke`` N = 31,
 batch 8).  ``--method`` resolves through the backend registry (``auto``
 is the hand-written kernel, ``pallas`` an alias of it); ``--n`` accepts
 any size (non-prime sizes are zero-embedded and cropped back).
+``--stream-rows H`` streams each image through one launch of the
+streamed kernel (K5) per transform, in strips of at most H rows (the
+giant-N path, e.g. ``--n 4099 --batch 4 --stream-rows 256``).
 ``--warmup`` builds the kernels and makes one warm call per datapath
 (``op.compile()``) before the timing loop; the loop runs inside a
 ``retrace_guard(max_traces=0)``: no plan or kernel is built in steady
@@ -17,7 +20,7 @@ state.
 Runs on the card (``--device cuda``, the default) and raises when there
 is none; ``--device cpu`` runs the kernels' plain versions.  Not ported
 yet, and refused with the ROADMAP item that ports them: ``--mode
-lm/service/pool``, ``--stream-rows`` and ``--mesh-shape``.
+lm/service/pool`` and ``--mesh-shape``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,6 @@ NOT_PORTED = {
     "--mode lm": "ROADMAP Queue 1 item 10 (LM substrate)",
     "--mode service": "ROADMAP Queue 1 item 8 (serving tier)",
     "--mode pool": "ROADMAP Queue 1 item 8 (serving tier)",
-    "--stream-rows": "ROADMAP Queue 1 item 7 (giant-N streaming, K4/K5)",
     "--mesh-shape": "ROADMAP Queue 1 item 9 (mesh path)",
 }
 
@@ -69,6 +71,7 @@ def serve_radon(args) -> torch.Tensor:
     op = radon.DPRT(tuple(imgs.shape), imgs.dtype, args.method,
                     strip_rows=args.strip_rows, m_block=args.m_block,
                     batch_impl=args.batch_impl,
+                    stream_rows=args.stream_rows,
                     block_batch=args.block_batch)
     inv = op.inverse
     if args.warmup:
@@ -100,6 +103,9 @@ def serve_radon(args) -> torch.Tensor:
     print(f"[serve-radon] N={n} (prime P={op.plan.geometry.prime}) batch={b} "
           f"method={args.method}->{op.plan.method} device={dev_name}: "
           f"round-trip exact={exact}, traces={op.trace_count}")
+    print(f"[serve-radon] route: {route_name(op.plan)}"
+          + (" -- its plain torch version on cpu" if device.type == "cpu"
+             else ""))
     print("[serve-radon] forward "
           + format_latency(latency_summary(fwd_lat),
                            b * iters / sum(fwd_lat)))
@@ -109,6 +115,19 @@ def serve_radon(args) -> torch.Tensor:
     if not exact:
         raise RuntimeError("DPRT round trip must be bit-exact")
     return r
+
+
+def route_name(plan) -> str:
+    """The kernel route a plan's forward and inverse take."""
+    if plan.stream_rows is None:
+        if plan.block_rows is not None:
+            return f"block_rows={plan.block_rows} scan ({plan.method})"
+        return f"{plan.method} (one launch per transform)"
+    if plan.backend.takes_stream_rows:
+        return (f"streamed kernel K5 (stream_impl dma), stream_rows="
+                f"{plan.stream_rows}, one launch per transform")
+    return (f"stream_rows={plan.stream_rows} scan on {plan.method} (no "
+            f"streamed kernel)")
 
 
 def list_backends():
@@ -137,7 +156,9 @@ def main(argv=None):
     ap.add_argument("--m-block", type=int, default=None,
                     help="direction block M (cuda; default: table)")
     ap.add_argument("--stream-rows", type=int, default=None,
-                    help="not ported yet: " + NOT_PORTED["--stream-rows"])
+                    help="stream the image through ONE launch of the "
+                         "streamed kernel in row strips of at most this "
+                         "height (giant N; backends without it scan)")
     ap.add_argument("--batch-impl", default="auto",
                     choices=["auto", "map", "vmap"],
                     help="batching for non-batched-native backends")
@@ -160,7 +181,6 @@ def main(argv=None):
     if args.list_backends:
         return list_backends()
     for flag, given in ((f"--mode {args.mode}", args.mode != "radon"),
-                        ("--stream-rows", args.stream_rows is not None),
                         ("--mesh-shape", args.mesh_shape is not None)):
         if given:
             raise SystemExit(f"{flag} is not ported to repro_torch yet: "

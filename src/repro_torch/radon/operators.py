@@ -126,8 +126,10 @@ class RadonOperator:
     # -- introspection -----------------------------------------------------
     @property
     def trace_count(self) -> int:
-        """Builds of this operator's plan so far (1 once it exists)."""
-        return trace_count(self.plan)
+        """Builds of this operator's plan so far (1 once it exists);
+        pipeline appliers built on the same plan are counted under their
+        own kind, not here."""
+        return trace_count(self.plan, kind="plan")
 
     def as_matrix(self, device="cuda") -> torch.Tensor:
         """Dense (out_size, in_size) matrix of this linear map, one basis
@@ -552,8 +554,10 @@ def DPRT(shape, dtype=torch.int32, method: Optional[str] = None, *,
     geometries are zero-embedded into the next prime and ``op.inverse``
     crops back.  Knobs left unset resolve against the ambient
     :func:`repro_torch.radon.config` scope, then ``method="auto"`` (the
-    ``cuda`` kernel backend for int/float images).  ``stream_rows`` and
-    ``mesh`` are not ported yet and raise ``NotImplementedError``.
+    ``cuda`` kernel backend for int/float images).  ``stream_rows=H``
+    streams giant images through ONE launch of the streamed kernel (K5)
+    each way, in strips of at most H rows.  ``mesh`` is not ported yet
+    and raises ``NotImplementedError``.
     """
     plan = get_plan(
         tuple(int(s) for s in shape), dtype,

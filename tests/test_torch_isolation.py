@@ -46,13 +46,14 @@ def test_port_has_the_slice_modules():
     for mod in ("core/dprt.py", "core/geometry.py", "core/plan.py",
                 "core/conv.py", "core/dft.py",
                 "kernels/sfdprt.py", "kernels/pipeline.py", "kernels/ops.py",
+                "kernels/stream.py",
                 "kernels/tuning.py", "kernels/ref.py", "kernels/_build.py",
                 "radon/operators.py", "radon/autodiff.py", "radon/fusion.py",
                 "radon/ambient.py", "launch/serve.py",
                 "launch/service.py", "data/synthetic.py",
                 "configs/radon_251.py"):
         assert mod in rel, mod
-    for src in ("sfdprt.cu", "pipeline.cu"):
+    for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
 
 

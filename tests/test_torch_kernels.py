@@ -131,13 +131,37 @@ def test_plain_k1_accumulator_dtypes(dtype):
         assert torch.equal(back, f)
 
 
+def test_k1_int32_overflow_wraps_like_the_reference():
+    """Sums past 2**31 wrap in K1's plain version exactly as the
+    reference's int32 kernel wraps them (the kernel adds in the unsigned
+    type of the same width for this), and the inverse of the wrapped
+    projections matches the reference's inverse."""
+    n = 13
+    big = 2 ** 28
+    f = np.random.default_rng(10).integers(-big, big, (3, n, n)).astype(
+        np.int32)
+    f[0] = np.abs(f[0])                    # image 0's sums all pass 2**31
+    want = np.asarray(dprt_pallas_raw(jnp.asarray(f), strip_rows=5,
+                                      m_block=8))
+    from repro.core import dprt_oracle_np
+    assert dprt_oracle_np(f[0].astype(np.int64)).max() >= 2 ** 31
+    got = S.dprt_raw(_port(f), strip_rows=5, m_block=8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_i = idprt_pallas_raw(jnp.asarray(want), strip_rows=5, m_block=8)
+    got_i = S.idprt_raw(_port(want), strip_rows=5, m_block=8)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
 def test_wrapper_checks():
     with pytest.raises(ValueError, match="prime"):
         ops.dprt_cuda(torch.zeros(9, 9, dtype=torch.int32))
     with pytest.raises(ValueError, match="N\\+1"):
         ops.idprt_cuda(torch.zeros(7, 7, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ops.dprt_cuda(torch.zeros(7, 7, dtype=torch.int32), stream_rows=4)
+    # stream_rows is ported (the streamed kernel's plain version on CPU)
+    f7 = torch.from_numpy(_ints((7, 7), seed=7))
+    from repro.core import dprt_oracle_np
+    np.testing.assert_array_equal(
+        ops.dprt_cuda(f7, stream_rows=4).numpy(), dprt_oracle_np(f7.numpy()))
     g = torch.zeros(1, 7, 7, dtype=torch.int32)
     with pytest.raises(TypeError, match="accumulator dtype"):
         S.sfdprt(g.to(torch.int16), sign=1, mode="core", strip_rows=7,

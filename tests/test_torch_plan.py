@@ -137,12 +137,13 @@ def test_pallas_is_an_alias_of_cuda():
     assert TP.get_backend("pallas") is TP.get_backend("cuda")
     caps = {row["name"]: row for row in TP.backend_capabilities()}
     assert caps["cuda"]["priority"] == 100 and caps["cuda"]["batched_native"]
-    assert not caps["cuda"]["stream"]
+    assert caps["cuda"]["stream"]
 
 
 def test_stream_rows_mesh_and_pipeline_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TP.get_plan((13, 13), torch.int32, stream_rows=4)
+    # stream_rows is ported: a streamed plan on the cuda backend
+    plan = TP.get_plan((13, 13), torch.int32, stream_rows=4)
+    assert plan.stream_rows == 4 and plan.method == "cuda"
     with pytest.raises(NotImplementedError, match="item 9"):
         TP.get_plan((13, 13), torch.int32, mesh=object())
     # the pipeline is ported (item 5); its mesh tail (K3) is not

@@ -112,8 +112,8 @@ def test_config_scopes():
     with pytest.raises(TypeError, match="unknown knob"):
         T.config(nope=1)
     with T.config(stream_rows=8):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            T.DPRT((7, 7), torch.int32)
+        op = T.DPRT((7, 7), torch.int32)
+        assert (op.plan.method, op.plan.stream_rows) == ("cuda", 8)
 
 
 def test_retrace_guard_counts_plan_builds():
@@ -147,10 +147,14 @@ def test_serve_refuses_what_is_not_ported():
     from repro_torch.launch import serve
     for argv, item in ((["--mode", "lm"], "item 10"),
                        (["--mode", "service"], "item 8"),
-                       (["--stream-rows", "8"], "item 7"),
                        (["--mesh-shape", "2,2"], "item 9")):
         with pytest.raises(SystemExit, match=item):
             serve.main(argv + ["--device", "cpu", "--smoke"])
+    # --stream-rows is ported: the streamed route runs and is exact
+    r = serve.main(["--mode", "radon", "--smoke", "--device", "cpu",
+                    "--stream-rows", "8", "--iters", "1"])
+    imgs = torch.from_numpy(t_radon_images(31, 8, kind="phantom"))
+    assert torch.equal(T.DPRT(imgs.shape, torch.int32)(imgs), r)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--smoke"])
