@@ -6,7 +6,7 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-three main paths -- two of the ``radon_251`` configuration (256 phantom
+four main paths -- three of the ``radon_251`` configuration (256 phantom
 images of 251 x 251, int32) and the giant-N path -- each with the launch
 counts set to 0 just before it and read just after:
 
@@ -21,7 +21,15 @@ counts set to 0 just before it and read just after:
    ``serve --mode radon --n 4099 --batch 4 --stream-rows 256`` through
    K5, the raw functions with ``stream_impl="grid"`` through K4, the
    reference's N = 2053 acceptance image, a uint8 N = 4099 image (int64
-   accumulators), a float32 gradient and a streamed ``mul`` pipeline.
+   accumulators), a float32 gradient and a streamed ``mul`` pipeline;
+4. the mesh path (kernels K1 and K3, the pipeline's mesh tail) on a
+   (1, 1) ``("data", "model")`` mesh at world size 1 over NCCL:
+   ``serve --mesh-shape 1,1``, ``radon.Conv2D`` under
+   ``radon.config(mesh=...)`` (equal to the unsharded K2 ``Conv2D``,
+   with no K2 launch), the fused filter, the round trip and a float32
+   gradient.  A further check runs each rank's step of the D = 4 mesh
+   pipeline in turn on the one card (K1 and K3 at their row offsets,
+   the collectives as sums), against K2 and a numpy oracle.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, and times every kernel against its bound.
@@ -1055,6 +1063,397 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 4: the mesh path (K3, the pipeline's mesh tail)
+# ---------------------------------------------------------------------------
+#: shards of the four-shards phase and of K3's per-shard timing
+MESH_SHARDS = 4
+TAIL_CHECK_NS = (13, 251)
+
+
+def tail_rc_scale(rows, w, op: str, off: int, n: int) -> float:
+    """The largest per-direction output K3's inverse sums (K2's float
+    tolerance is relative to it): the op applied to the shard's rows of
+    global direction <= N, at least 1."""
+    import torch
+    from repro_torch.core.conv import circ_conv1d_exact
+    grow = off + torch.arange(rows.shape[1], device=rows.device)
+    keep = grow <= n
+    rf = rows[:, keep]
+    if op == "none" or not bool(keep.any()):
+        rc = rf
+    else:
+        win = w[:, grow[keep]]
+        rc = circ_conv1d_exact(rf, win) if op == "conv" else rf * win
+    return max(float(rc.double().abs().max()) if rc.numel() else 0.0, 1.0)
+
+
+def tail_kernel_phase() -> dict:
+    """K3 against its plain version: N in {13, 251}, ops none/mul/conv
+    with shared and batched operands, int32/int64 bit-exact and float32
+    within K2's tolerance, the shards of 1, 2, 4 and 5 ranks at row_offset
+    0, a middle shard and the shard that holds direction N and the
+    padding past it, batch 1 and 3, the table's and an awkward m_block,
+    and int32 values whose sums and products overflow.  Five shards put
+    padding rows past direction N into the last shard at N = 251 too."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.tuning import pipeline_block_spec
+
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    worst = {}
+    cases = 0
+
+    def run(label, rows, w, op, off, mb):
+        nonlocal cases
+        n = rows.shape[-1]
+        got, got_aux = P.pipeline_tail_raw(rows, w, op=op, row_offset=off,
+                                           m_block=mb)
+        torch.cuda.synchronize()
+        want, want_aux = P.pipeline_tail_plain(rows, w, op=op,
+                                               row_offset=off)
+        torch.cuda.synchronize()
+        tol = aux_tol = None
+        if rows.dtype.is_floating_point:
+            # K2's tolerance holds for the pipeline's output, which is
+            # (Z - S + c) / N; K3 returns Z itself, so N times it
+            aux_tol = PIPE_F32_REL * tail_rc_scale(rows, w, op, off, n)
+            tol = n * aux_tol
+        err = max(check_close(f"K3 {label} out", got, want, n, tol),
+                  check_close(f"K3 {label} aux", got_aux, want_aux, n,
+                              aux_tol))
+        worst[op] = max(worst.get(op, 0.0), err)
+        cases += 1
+
+    for n in TAIL_CHECK_NS:
+        table_mb = pipeline_block_spec(n)[0]
+        for devs in (1, 2, MESH_SHARDS, 5):
+            dirs_loc = -(-(n + 1) // devs)
+            offsets = sorted({0, (devs // 2) * dirs_loc,
+                              (devs - 1) * dirs_loc})
+            for mb in sorted({min(table_mb, dirs_loc), 5}):
+                for b in (1, 3):
+                    for dt in (torch.int32, torch.int64, torch.float32):
+                        def make(shape, lo=-200, hi=256):
+                            if dt.is_floating_point:
+                                a = rng.random(shape)
+                            else:
+                                a = rng.integers(lo, hi, shape)
+                            return torch.as_tensor(a).to(dt).to(dev)
+
+                        rows = make((b, dirs_loc, n))
+                        runs = [("none", None, "none"),
+                                ("mul shared", make((1, n + 1, n), -9, 10),
+                                 "mul"),
+                                ("mul batched", make((b, n + 1, n), -9, 10),
+                                 "mul"),
+                                ("conv shared", make((1, n + 1, n), -9, 10),
+                                 "conv"),
+                                ("conv batched",
+                                 make((b, n + 1, n), -9, 10), "conv")]
+                        for label, w, op in runs:
+                            for off in offsets:
+                                run(f"{label} N={n} shards={devs} "
+                                    f"off={off} M={mb} B={b} {dt}", rows, w,
+                                    op, off, mb)
+    big = 2 ** 28
+    for n in TAIL_CHECK_NS:
+        dirs_loc = -(-(n + 1) // MESH_SHARDS)
+        rows = torch.as_tensor(rng.integers(-big, big, (3, dirs_loc, n)),
+                               dtype=torch.int32).to(dev)
+        w = torch.as_tensor(rng.integers(-big, big, (3, n + 1, n)),
+                            dtype=torch.int32).to(dev)
+        for op, opd in (("none", None), ("mul", w), ("conv", w)):
+            for off in (0, (MESH_SHARDS - 1) * dirs_loc):
+                run(f"overflow {op} N={n} off={off}", rows, opd, op, off,
+                    pipeline_block_spec(n)[0])
+    log(f"tail kernel phase: {cases} cases agree with the plain version "
+        f"(max |err| by op: {worst})")
+    return worst
+
+
+def circ_conv_np(f, k):
+    """Numpy oracle of the circular convolution of each image of ``f``
+    (B, N, N) with a small kernel ``k``: sum_{a,b} k[a,b] f[x-a, y-b]."""
+    import numpy as np
+    out = np.zeros(f.shape, dtype=np.int64)
+    for a in range(k.shape[0]):
+        for b in range(k.shape[1]):
+            out += int(k[a, b]) * np.roll(f, (a, b), axis=(-2, -1))
+    return out
+
+
+def mesh_main_path_phase() -> dict:
+    """The radon_251 mesh path on the card at world size 1 over NCCL, on
+    a (1, 1) ("data", "model") mesh: serve --mesh-shape 1,1, Conv2D 3 x 3
+    under radon.config(mesh=...), the fused filter and round trip, and a
+    float32 gradient on a mesh operator; returns the launches of that
+    run (K1 by mode, K2 and K3 by op)."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_world, make_local_mesh
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    dev = torch.device("cuda")
+    init_world("cuda")
+    mesh = make_local_mesh(1, 1)
+    if mesh.device_type != "cuda" or tuple(mesh.mesh.shape) != (1, 1):
+        fail(f"expected a (1, 1) cuda mesh, got {mesh}")
+    rng = np.random.default_rng(7)
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    kern = torch.ones((3, 3), dtype=torch.int32, device=dev)
+    w = torch.from_numpy(rng.integers(-7, 8, (n + 1, n))
+                         .astype(np.int32)).to(dev)
+    xf = torch.from_numpy(rng.random((b, n, n), dtype=np.float32)).to(dev)
+    wf = torch.from_numpy(rng.random((b, n + 1, n),
+                                     dtype=np.float32)).to(dev)
+    with radon.config(mesh=mesh):
+        conv = radon.Conv2D(tuple(imgs.shape), kern)
+        op = radon.DPRT(tuple(imgs.shape), torch.int32)
+        opf = radon.DPRT(tuple(imgs.shape), torch.float32)
+    filt = op.inverse @ radon.ProjectionFilter(w) @ op
+    if not (conv.plan.method == op.plan.method == opf.plan.method
+            == "sharded_cuda") or not conv.describe()["pipeline"]:
+        fail(f"the mesh resolved to {conv.plan.method!r}/"
+             f"{op.plan.method!r}, not sharded_cuda with the pipeline")
+    if len(filt.ops) != 1 or not isinstance(
+            filt.ops[0], radon.FusedProjectionPipeline):
+        fail(f"inverse @ filter @ forward on the mesh was not fused: "
+             f"{filt!r}")
+    conv(imgs)                  # warm: plans, appliers and kernels built
+    torch.cuda.synchronize()
+
+    kernel_builds = radon.trace_count(kind="kernel")
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    t0 = time.perf_counter()
+    # -- the serve CLI on a (1, 1) mesh -----------------------------------
+    served = serve.main(["--mode", "radon", "--batch", str(b), "--n",
+                         str(n), "--iters", str(SERVE_ITERS), "--device",
+                         "cuda", "--mesh-shape", "1,1"])
+    # -- Conv2D on the mesh: the timed loop must build nothing -------------
+    walls = []
+    with radon.retrace_guard(max_traces=0):
+        for _ in range(CONV_ITERS):
+            t1 = time.perf_counter()
+            out = conv(imgs)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t1))
+    # -- the fused filter, the round trip, a float32 gradient ---------------
+    filtered = filt(imgs)
+    round_trip = conv.plan.pipeline(imgs, "none")
+    x = xf.clone().requires_grad_(True)
+    (wf * opf(x)).sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": dict(S.MODE_LAUNCHES), "k2": dict(P.OP_LAUNCHES),
+                "k3": dict(P.TAIL_OP_LAUNCHES)}
+
+    # serve: 1 warm + SERVE_ITERS each way, the mesh inverse is K1's core
+    # skew-sum plus the epilogue in torch; Conv2D: K1 forward of the kernel
+    # and of the image strip, then K3; filter: K1 forward + K3 (mul); round
+    # trip: K1 forward + K3 (none); gradient: forward, then core (adjoint)
+    want = {"k1": {"core": 1 + SERVE_ITERS + 1, "inverse": 0,
+                   "forward": 1 + SERVE_ITERS + 2 * CONV_ITERS + 3},
+            "k2": {"none": 0, "mul": 0, "conv": 0},
+            "k3": {"none": 1, "mul": 1, "conv": CONV_ITERS}}
+    if launches != want:
+        fail(f"mesh path launches {launches}, expected {want}")
+    if radon.trace_count(kind="kernel") != kernel_builds:
+        fail("the mesh path rebuilt a kernel")
+    log(f"mesh path: launches {launches} (expected; K2 none); Conv2D host "
+        f"ms {[round(t, 3) for t in walls]}; {wall:.2f} s host wall")
+
+    # -- checks (their own launches are not counted) -----------------------
+    plain_op = radon.DPRT(tuple(imgs.shape), torch.int32)
+    plain_conv = radon.Conv2D(tuple(imgs.shape), kern)
+    if plain_conv.plan.mesh is not None or plain_op.plan.method != "cuda":
+        fail("the unsharded reference operators resolved onto the mesh")
+    rf = plain_op(imgs)
+    if not torch.equal(served, rf):
+        fail("serve --mesh-shape 1,1 projections differ from the unsharded "
+             "K1 forward")
+    if not torch.equal(out, plain_conv(imgs)):
+        fail("the mesh Conv2D differs from the unsharded K2 Conv2D")
+    if not torch.equal(filtered, plain_op.inverse(w * rf)):
+        fail("the mesh fused filter differs from op.inverse(w * op(f))")
+    if not torch.equal(round_trip, imgs):
+        fail("the mesh round trip pipeline is not f")
+    # int32 wrap on the mesh datapaths: values in +-2^28 overflow the sums
+    from repro_torch.core import distributed as D
+    big = torch.from_numpy(rng.integers(-2 ** 28, 2 ** 28, (8, n, n))
+                           .astype(np.int32)).to(dev)
+    for red in D.REDUCES:
+        rb = D.dprt_sharded_pallas(big, mesh, reduce=red)
+        if not torch.equal(rb.full_tensor(), S.dprt_raw(big)):
+            fail(f"mesh forward ({red}) of int32 +-2^28 differs from K1")
+        if not torch.equal(D.idprt_sharded_pallas(rb, mesh, reduce=red)
+                           .full_tensor(), S.idprt_raw(S.dprt_raw(big))):
+            fail(f"mesh inverse ({red}) of int32 +-2^28 differs from K1")
+    bw = torch.from_numpy(rng.integers(-2 ** 28, 2 ** 28, (8, n + 1, n))
+                          .astype(np.int32)).to(dev)
+    for op_, opd in (("none", None), ("mul", bw), ("conv", bw)):
+        got = D.projection_pipeline_sharded(big, mesh, op=op_, operand=opd)
+        want_p = P.pipeline_raw(big, opd, op=op_)[0]
+        if not torch.equal(got.full_tensor(), want_p):
+            fail(f"mesh pipeline {op_} of int32 +-2^28 differs from K2")
+    with torch.no_grad():
+        grad_t = opf.T(wf)
+    err = check_close("mesh grad vs op.T", x.grad, grad_t, n)
+    check_close("mesh op.T vs unsharded op.T", grad_t,
+                radon.DPRT(tuple(imgs.shape), torch.float32).T(wf), n)
+    log(f"mesh path: N={n} B={b} on {conv.describe()['mesh']} over "
+        f"{torch.distributed.get_backend()}: serve round trip exact with "
+        f"zero builds in its timed loop, "
+        f"Conv2D == unsharded K2 Conv2D, fused filter and round trip "
+        f"exact, int32 +-2^28 forward/inverse (every reduce) and pipeline "
+        f"ops wrap as K1/K2 do, float32 grad == op.T (max |err| "
+        f"{err:.3g})")
+    return launches
+
+
+def four_shards_phase() -> None:
+    """Each rank's step of projection_pipeline_sharded for D = 4, in turn
+    on the card, with the collectives done as explicit sums and slices:
+    K1 on row strips at row_offset r*63, sum and split into four
+    direction shards, K3 on each at row_offset r*63, sum and the floor
+    divide correction.  The only run of K1 and K3 at row_offset != 0 in
+    the mesh's own data flow; it must equal K2's Conv2D and the numpy
+    oracle."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.core.dprt import dprt_oracle_np
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import ops
+
+    cfg = config()
+    n, b, devs = cfg.n, cfg.batch, MESH_SHARDS
+    dev = torch.device("cuda")
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    kern = torch.ones((3, 3), dtype=torch.int32, device=dev)
+    kpad = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    kpad[:3, :3] = kern
+    rg = radon.DPRT((n, n), torch.int32)(kpad)
+    rows = -(-n // devs)
+    dirs_loc = -(-(n + 1) // devs)
+    # 1. K1 on each rank's row strip at its global row offset
+    parts = [ops.dprt_cuda_strip(imgs[:, r * rows:(r + 1) * rows],
+                                 row_offset=r * rows) for r in range(devs)]
+    # 2. the reduce_scatter: sum, pad the directions, split into shards
+    proj = torch.zeros((b, dirs_loc * devs, n), dtype=torch.int32,
+                       device=dev)
+    proj[:, :n + 1] = sum(parts)
+    # 3. K3 on each rank's direction shard at its global offset
+    tails = [ops.pipeline_tail_cuda(
+        proj[:, r * dirs_loc:(r + 1) * dirs_loc], "conv", rg,
+        row_offset=r * dirs_loc, n=n) for r in range(devs)]
+    # 4. the sums of z and aux, then the deferred correction
+    z = sum(t[0] for t in tails)
+    aux = sum(t[1] for t in tails)
+    s = aux[:, 0].sum(-1, dtype=torch.int32)[:, None, None]
+    out = torch.div(z - s + aux[:, 1, :, None], n, rounding_mode="floor")
+    torch.cuda.synchronize()
+
+    fwd = radon.DPRT(tuple(imgs.shape), torch.int32)(imgs)
+    if not torch.equal(proj[:, :n + 1], fwd):
+        fail("the four K1 strip partials do not sum to the forward")
+    if not np.array_equal(proj[0, :n + 1].cpu().numpy(),
+                          dprt_oracle_np(imgs[0].cpu().numpy())):
+        fail("the summed strip partials of image 0 differ from the numpy "
+             "oracle")
+    if not torch.equal(out, radon.Conv2D(tuple(imgs.shape), kern)(imgs)):
+        fail("the four-shard pipeline differs from K2's Conv2D")
+    want = circ_conv_np(imgs.cpu().numpy(), kern.cpu().numpy())
+    if not np.array_equal(out.cpu().numpy(), want):
+        fail("the four-shard pipeline differs from the numpy oracle")
+    log(f"four shards: N={n} B={b}, K1 on {devs} row strips of {rows} "
+        f"(row_offset r*{rows}) and K3 on {devs} direction shards of "
+        f"{dirs_loc} (row_offset r*{dirs_loc}) == K2 Conv2D == numpy "
+        f"oracle, bit for bit")
+
+
+def tail_timing_phase(launches: dict, worst: dict) -> list:
+    """K3 vs its plain version at radon_251, per op: at world size 1 (one
+    shard of all N+1 directions, the mesh path's shape) and per shard at
+    D = 4 (a middle shard of 63 directions)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.sfdprt import sfdprt_plain
+    from repro_torch.kernels.tuning import pipeline_block_spec
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    mb = pipeline_block_spec(n)[0]
+    dev = torch.device("cuda")
+    f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
+    rows = sfdprt_plain(f, sign=1, mode="forward")          # (b, N+1, N)
+    kern = torch.zeros((1, n, n), dtype=torch.int32, device=dev)
+    kern[:, :3, :3] = 1
+    rg = sfdprt_plain(kern, sign=1, mode="forward")
+    w = torch.from_numpy(np.random.default_rng(8).integers(
+        -7, 8, (1, n + 1, n)).astype(np.int32)).to(dev)
+    dirs_loc = -(-(n + 1) // MESH_SHARDS)
+    shapes = {"world1": (rows, 0),
+              "shard": (rows[:, dirs_loc:2 * dirs_loc].contiguous(),
+                        dirs_loc)}
+    torch.cuda.synchronize()
+    item = 4
+    out = []
+    for op, opd in (("conv", rg), ("mul", w), ("none", None)):
+        row = {"name": f"pipeline_tail_kernel[{op}]", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/pipeline.cu",
+               "replaces": "src/repro/kernels/sfdprt.py:853",
+               "note": 'source="proj", defer=True: the mesh pipeline tail',
+               "launches": launches["k3"][op],
+               "max_abs_err": worst.get(op, 0.0), "library_ms": None,
+               "library_note": "none: no PyTorch call computes the "
+                               "skew-sum tail"}
+        for key, (x, off) in shapes.items():
+            k = x.shape[1]
+            live = max(0, min(k, n - off))           # directions < N
+            eff = P.tail_smem_rows(n, item, mb, k, op)
+            epi = {"conv": b * k * n * n, "mul": b * k * n, "none": 0}[op]
+            ops_n = epi + b * live * n * n
+            nbytes = item * (b * k * n + b * n * n + 2 * b * n
+                             + (0 if opd is None else k * n))
+            k_ms = cuda_ms(lambda: P.pipeline_tail_raw(
+                x, opd, op=op, row_offset=off, m_block=mb))
+            p_ms = cuda_ms(lambda: P.pipeline_tail_plain(
+                x, opd, op=op, row_offset=off), reps=3, warm=1)
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            ops_ms = 1e3 * ops_n / INT32_ADDS_PER_S
+            fields = {"ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                      "shape": f"N={n} B={b} int32 dirs_loc={k} "
+                               f"row_offset={off} m_block {mb} -> {eff}"}
+            if key == "world1":
+                row.update(fields)
+            else:
+                row.update({f"shard_{k2}": v for k2, v in fields.items()})
+            log(f"timing pipeline tail {op} ({key}): kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                f"({fields['bound_by']}; {ops_n:.4g} int32 ops; "
+                f"{fields['shape']})")
+        out.append(row)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1065,6 +1464,7 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no port sources under {SRC}: run from a checkout")
     sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import close_world
     card = nvidia_smi_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1074,13 +1474,18 @@ def main() -> int:
     worst = kernel_phase()
     pipe_worst = pipeline_kernel_phase()
     stream_worst = stream_kernel_phase()
+    tail_worst = tail_kernel_phase()
     launches = main_path_phase()
     pipe_launches = pipeline_main_path_phase()
     giant_launches = giant_main_path_phase()
+    mesh_launches = mesh_main_path_phase()
+    four_shards_phase()
     kernels = timing_phase(launches, worst)
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
     kernels += stream_timing_phase(giant_launches, stream_worst)
+    kernels += tail_timing_phase(mesh_launches, tail_worst)
     pipeline_profile_phase()
+    close_world()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

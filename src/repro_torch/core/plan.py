@@ -32,10 +32,15 @@ one call of the fused pipeline kernel K2 on backends that declare the
 forward, exact 1-D stage, inverse -- everywhere else and under
 ``block_rows`` or ``stream_rows``; both give the same integers.
 
-Not ported yet: ``mesh`` and the sharded backends (ROADMAP Queue 1 item
-9) raise ``NotImplementedError``.
+Under a ``mesh`` (a ``torch.distributed`` DeviceMesh, one process per
+rank) ``method="auto"`` resolves to the mesh-aware ``sharded_cuda``
+backend (``sharded_pallas`` is its alias): every rank runs K1 on its
+rows with one ``all_reduce`` per transform, and the pipeline runs K1,
+one ``reduce_scatter`` and K3 (:mod:`repro_torch.core.distributed`).
+The legacy ``sharded`` backend scans each rank's rows in torch.  Plan
+datapaths pin ``reduce="psum"`` and return whole tensors on every rank.
 
-Plans are cached by (shape, dtype, method, knobs) in a bounded LRU
+Plans are cached by (shape, dtype, method, knobs, mesh) in a bounded LRU
 (``REPRO_PLAN_CACHE_MAXSIZE``, default 512) with hit/miss/eviction
 counters; building one is pure Python shape math.
 """
@@ -45,6 +50,7 @@ import collections
 import dataclasses
 import functools
 import os
+import re
 import threading
 from typing import Callable, Optional, Tuple
 
@@ -76,10 +82,7 @@ __all__ = [
 ]
 
 #: reference method names that resolve to a port backend
-METHOD_ALIASES = {"pallas": "cuda"}
-
-MESH_TODO = ("mesh and the sharded backends are not ported yet: ROADMAP "
-             "Queue 1 item 9")
+METHOD_ALIASES = {"pallas": "cuda", "sharded_pallas": "sharded_cuda"}
 
 
 # ---------------------------------------------------------------------------
@@ -182,19 +185,76 @@ def backend_capabilities() -> list:
 def select_backend(n: int, dtype, batch: Optional[int] = None,
                    mesh=None) -> str:
     """``method="auto"``: the highest-priority backend supporting the
-    dtype (``cuda`` for every int/float image, else ``horner``)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    dtype -- among the mesh-aware ones under a mesh (``sharded_cuda``
+    for every int/float image, else the legacy ``sharded``), among the
+    others without one (``cuda``, else ``horner``)."""
     best = None
     for name in available_backends():
         b = _REGISTRY[name]
-        if b.mesh_aware or not b.supports_dtype(dtype):
+        if b.mesh_aware != (mesh is not None) or not b.supports_dtype(dtype):
             continue
         if best is None or b.priority > best.priority:
             best = b
     if best is None:
-        raise ValueError(f"no registered backend supports dtype {dtype}")
+        raise ValueError(f"no registered backend supports dtype {dtype}"
+                         + (" under a mesh" if mesh is not None else ""))
     return best.name
+
+
+def _mesh_names_sizes(mesh) -> tuple:
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if mesh.mesh_dim_names is None:
+        raise ValueError("the mesh needs dim names, e.g. ('data', 'model')")
+    return tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape)
+
+
+def _topology_token(mesh) -> Optional[str]:
+    """The mesh's part of a plan-cache key: dim names and sizes, the
+    device type and the global ranks of the mesh (so of every dim's
+    groups).  None without a mesh."""
+    if mesh is None:
+        return None
+    names, sizes = _mesh_names_sizes(mesh)
+    return ("mesh_" + "_".join(f"{a}{s}" for a, s in zip(names, sizes))
+            + f"_{mesh.device_type}_ranks{mesh.mesh.flatten().tolist()}")
+
+
+def _mesh_repr(mesh) -> Optional[str]:
+    """``describe()``'s mesh entry, in the reference's ``Mesh`` repr
+    terms: the dim sizes and names."""
+    if mesh is None:
+        return None
+    names, sizes = _mesh_names_sizes(mesh)
+    return f"DeviceMesh(axis_sizes={sizes}, axis_names={names})"
+
+
+def _mesh_for_description(desc: dict, mesh):
+    """The mesh to build a described plan on: ``mesh`` must have the dim
+    names and sizes the description's ``mesh`` entry gives (a reference
+    ``Mesh`` repr or the port's own), and be given exactly when the
+    description names one."""
+    want = desc.get("mesh")
+    if want is None:
+        if mesh is not None:
+            raise ValueError("the description has no mesh; pass mesh=None")
+        return None
+    if mesh is None:
+        raise ValueError(f"the description's plan lives on a mesh ({want}): "
+                         f"pass mesh= a DeviceMesh of the same shape")
+    sizes = re.search(r"axis_sizes=\(([^)]*)\)", want)
+    names = re.search(r"axis_names=\(([^)]*)\)", want)
+    if sizes is None or names is None:
+        raise ValueError(f"cannot read the mesh description {want!r}")
+    shape = (tuple(n.strip().strip("'\"") for n in names.group(1).split(",")
+                   if n.strip()),
+             tuple(int(v) for v in sizes.group(1).split(",") if v.strip()))
+    if shape != _mesh_names_sizes(mesh):
+        raise ValueError(f"the description's mesh {want} does not match "
+                         f"{_mesh_repr(mesh)}")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +379,83 @@ def _cuda_pipeline(fp, op, operand, operand_form, *, strip_rows=None,
                                     operand_form=operand_form)
 
 
+def _require_mesh(mesh):
+    if mesh is None:
+        raise ValueError(
+            "the 'sharded' backends need mesh= (a torch.distributed "
+            "DeviceMesh); pass it explicitly or through radon.config(mesh=)")
+    return mesh
+
+
+# the mesh adapters return whole tensors on every rank: the plan
+# datapaths pin reduce="psum" (a batch sharded over the data axes is
+# gathered back); the direction-sharded layout, which a round trip
+# consumes in place, lives on the raw core.distributed functions
+def _sharded_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None):
+    from .distributed import _row_axis, _skew_sum_sharded
+    mesh = _require_mesh(mesh)
+    return _skew_sum_sharded(g, mesh, axis=_row_axis(mesh),
+                             sign=sign).full_tensor()
+
+
+def _sharded_forward(f, *, strip_rows=None, m_block=None, mesh=None):
+    from .distributed import _row_axis, dprt_sharded
+    mesh = _require_mesh(mesh)
+    return dprt_sharded(f, mesh, axis=_row_axis(mesh)).full_tensor()
+
+
+def _sharded_inverse(r, *, strip_rows=None, m_block=None, mesh=None):
+    from .distributed import _row_axis, idprt_sharded
+    mesh = _require_mesh(mesh)
+    return idprt_sharded(r, mesh, axis=_row_axis(mesh)).full_tensor()
+
+
+def _sharded_forward_batched(fb, *, strip_rows=None, m_block=None,
+                             mesh=None):
+    from .distributed import dprt_batch_sharded
+    return dprt_batch_sharded(fb, _require_mesh(mesh)).full_tensor()
+
+
+def _sharded_inverse_batched(rb, *, strip_rows=None, m_block=None,
+                             mesh=None):
+    from .distributed import idprt_batch_sharded
+    return idprt_batch_sharded(rb, _require_mesh(mesh)).full_tensor()
+
+
+def _sharded_cuda_skew(g, sign, *, strip_rows=None, m_block=None, mesh=None,
+                       stream_rows=None):
+    from .distributed import skew_sum_sharded_pallas
+    return skew_sum_sharded_pallas(
+        g, _require_mesh(mesh), sign=sign, reduce="psum",
+        strip_rows=strip_rows, m_block=m_block,
+        stream_rows=stream_rows).full_tensor()
+
+
+def _sharded_cuda_forward(f, *, strip_rows=None, m_block=None, mesh=None,
+                          stream_rows=None):
+    from .distributed import dprt_sharded_pallas
+    return dprt_sharded_pallas(
+        f, _require_mesh(mesh), reduce="psum", strip_rows=strip_rows,
+        m_block=m_block, stream_rows=stream_rows).full_tensor()
+
+
+def _sharded_cuda_inverse(r, *, strip_rows=None, m_block=None, mesh=None,
+                          stream_rows=None):
+    from .distributed import idprt_sharded_pallas
+    return idprt_sharded_pallas(
+        r, _require_mesh(mesh), reduce="psum", strip_rows=strip_rows,
+        m_block=m_block, stream_rows=stream_rows).full_tensor()
+
+
+def _sharded_cuda_pipeline(fp, op, operand, operand_form, *, strip_rows=None,
+                           m_block=None, mesh=None, stream_rows=None):
+    from .distributed import projection_pipeline_sharded
+    return projection_pipeline_sharded(
+        fp, _require_mesh(mesh), op=op, operand=operand,
+        strip_rows=strip_rows, m_block=m_block,
+        stream_rows=stream_rows).full_tensor()
+
+
 register_backend(Backend(
     name="gather",
     skew_sum=_gather_skew,
@@ -362,6 +499,35 @@ register_backend(Backend(
     note="hand-written Hopper kernels: SFDPRT K1 (one launch per stack), "
          "streamed K4/K5 (stream_rows) and pipeline K2; plain torch "
          "versions on CPU tensors",
+))
+register_backend(Backend(
+    name="sharded",
+    skew_sum=_sharded_skew,
+    forward=_sharded_forward,
+    inverse=_sharded_inverse,
+    forward_batched=_sharded_forward_batched,
+    inverse_batched=_sharded_inverse_batched,
+    mesh_aware=True,
+    priority=0,  # mesh-only; sharded_cuda outranks it under auto
+    note="legacy row super-strips (torch Horner scan) + one all_reduce",
+))
+register_backend(Backend(
+    name="sharded_cuda",
+    skew_sum=_sharded_cuda_skew,
+    forward=_sharded_cuda_forward,
+    inverse=_sharded_cuda_inverse,
+    forward_batched=_sharded_cuda_forward,   # the same wrappers take (B, …)
+    inverse_batched=_sharded_cuda_inverse,
+    skew_batched=_sharded_cuda_skew,
+    pipeline=_sharded_cuda_pipeline,
+    batched_native=True,
+    takes_m_block=True,
+    takes_stream_rows=True,
+    mesh_aware=True,
+    dtype_kinds=("i", "u", "f"),
+    priority=20,  # mesh-only: beats legacy "sharded" under method="auto"
+    note="per-shard K1 (K4/K5 with stream_rows) + one all_reduce; "
+         "pipeline: K1, one reduce_scatter, K3 (core/distributed.py)",
 ))
 
 
@@ -446,7 +612,8 @@ class RadonPlan:
     #: degrade to the ``block_rows`` scan with the same strip height
     stream_rows: Optional[int] = None
     block_batch: Optional[int] = None
-    mesh: Optional[object] = None      # always None: not ported (item 9)
+    #: the torch.distributed DeviceMesh of a mesh plan (None otherwise)
+    mesh: Optional[object] = None
     dtype_name: Optional[str] = None
 
     @property
@@ -537,7 +704,8 @@ class RadonPlan:
         if not g.batched:
             return self._forward_prime(fp)
         be = self.backend
-        native = be.forward_batched if be.batched_native else None
+        native = (be.forward_batched
+                  if be.batched_native or be.mesh_aware else None)
         return self._stack(fp, native, self._forward_prime)
 
     def inverse(self, r: torch.Tensor) -> torch.Tensor:
@@ -547,7 +715,8 @@ class RadonPlan:
         if not g.batched:
             return G.crop(self._inverse_prime(r), g)
         be = self.backend
-        native = be.inverse_batched if be.batched_native else None
+        native = (be.inverse_batched
+                  if be.batched_native or be.mesh_aware else None)
         return G.crop(self._stack(r, native, self._inverse_prime), g)
 
     def adjoint(self, r: torch.Tensor) -> torch.Tensor:
@@ -677,8 +846,8 @@ class RadonPlan:
                     rg = get_plan((p, p), self.dtype_name, self.method,
                                   strip_rows=self.strip_rows,
                                   m_block=self.m_block,
-                                  stream_rows=self.stream_rows
-                                  ).forward(operand)
+                                  stream_rows=self.stream_rows,
+                                  mesh=self.mesh).forward(operand)
             else:
                 rg = operand
             from .conv import circ_conv1d_exact
@@ -704,7 +873,7 @@ class RadonPlan:
             "block_rows": self.block_rows,
             "stream_rows": self.stream_rows,
             "block_batch": self.block_batch,
-            "mesh": None if self.mesh is None else repr(self.mesh),
+            "mesh": _mesh_repr(self.mesh),
         }
 
 
@@ -831,12 +1000,13 @@ def _build_plan(shape: tuple, dtype_name_: str, method: str,
                 strip_rows: Optional[int], m_block: Optional[int],
                 batch_impl: str, block_rows: Optional[int],
                 stream_rows: Optional[int],
-                block_batch: Optional[int]) -> RadonPlan:
+                block_batch: Optional[int], mesh) -> RadonPlan:
     geom = G.normalize_geometry(shape)
     dtype = as_dtype(dtype_name_)
     requested = method
     if method == "auto":
-        method = select_backend(geom.prime, dtype, batch=geom.batch)
+        method = select_backend(geom.prime, dtype, batch=geom.batch,
+                                mesh=mesh)
     be = get_backend(method)
     if not be.supports_dtype(dtype):
         raise ValueError(
@@ -854,7 +1024,8 @@ def _build_plan(shape: tuple, dtype_name_: str, method: str,
                      requested_method=requested, strip_rows=strip_rows,
                      m_block=m_block, batch_impl=batch_impl,
                      block_rows=block_rows, stream_rows=stream_rows,
-                     block_batch=block_batch, dtype_name=dtype_name(dtype))
+                     block_batch=block_batch, mesh=mesh,
+                     dtype_name=dtype_name(dtype))
 
 
 def get_plan(shape, dtype, method: str = "auto", *,
@@ -868,26 +1039,32 @@ def get_plan(shape, dtype, method: str = "auto", *,
     """Cached :class:`RadonPlan` for an input shape/dtype and knobs.
 
     The ``block_rows`` / ``stream_rows`` ValueErrors fire first, for
-    every backend.  ``mesh`` is accepted for the reference's signature
-    and raises ``NotImplementedError`` (not ported yet)."""
+    every backend.  ``mesh`` (a DeviceMesh with named dims) enters the
+    cache key as its topology token -- dim names, sizes, device type and
+    ranks -- so a plan built for one mesh is never returned for
+    another, nor without one."""
     check_strip_knobs(block_rows, stream_rows)
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
     shape = tuple(int(s) for s in shape)
     key = (shape, dtype_name(as_dtype(dtype)), method,
            None if strip_rows is None else int(strip_rows),
            None if m_block is None else int(m_block), batch_impl,
            None if block_rows is None else int(block_rows),
            None if stream_rows is None else int(stream_rows),
-           None if block_batch is None else int(block_batch))
-    return _PLAN_CACHE.get_or_build(key, lambda: _build_plan(*key))
+           None if block_batch is None else int(block_batch),
+           _topology_token(mesh))
+    return _PLAN_CACHE.get_or_build(key,
+                                    lambda: _build_plan(*key[:-1], mesh))
 
 
-def plan_from_description(desc: dict) -> RadonPlan:
+def plan_from_description(desc: dict, mesh=None) -> RadonPlan:
     """The port's plan for a reference ``RadonPlan.describe()`` dict.
 
     ``plan_from_description(d).describe() == d`` except that ``method``
-    reads ``cuda`` where ``d`` says ``pallas``."""
+    reads ``cuda`` where ``d`` says ``pallas`` (``sharded_cuda`` for
+    ``sharded_pallas``) and ``mesh`` is the port's repr of a mesh with
+    the described dim names and sizes: a described mesh plan needs
+    ``mesh=``, a DeviceMesh of that shape."""
+    mesh = _mesh_for_description(desc, mesh)
     plan = get_plan(desc["image_shape"], desc["dtype"],
                     desc["requested_method"],
                     strip_rows=desc.get("strip_rows"),
@@ -895,7 +1072,7 @@ def plan_from_description(desc: dict) -> RadonPlan:
                     block_rows=desc.get("block_rows"),
                     stream_rows=desc.get("stream_rows"),
                     block_batch=desc.get("block_batch"),
-                    mesh=desc.get("mesh"))
+                    mesh=mesh)
     want = _canonical_method(desc["method"])
     if plan.method != want:
         raise ValueError(f"description resolved to {desc['method']!r}, the "
@@ -928,13 +1105,12 @@ def dispatch_skew_sum(g: torch.Tensor, sign: int, method: str = "horner",
                       m_block: Optional[int] = None,
                       mesh=None) -> torch.Tensor:
     """Registry-routed skew-sum primitive (prime-domain input)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
     n = g.shape[-1]
     if method == "auto":
-        method = select_backend(n, g.dtype)
+        method = select_backend(n, g.dtype, mesh=mesh)
     be = get_backend(method)
     if be.needs_strip_rows and strip_rows is None:
         itemsize = accum_dtype_for(g.dtype, n).itemsize
         strip_rows = resolve_blocks(n, itemsize, None, None)[0]
-    return be.skew_sum(g, sign, strip_rows=strip_rows, m_block=m_block)
+    return be.skew_sum(g, sign, strip_rows=strip_rows, m_block=m_block,
+                       mesh=mesh)

@@ -2,9 +2,9 @@
 
 K1, the fused batched SFDPRT kernel, lives in ``csrc/sfdprt.cu`` with
 its launcher and plain version in :mod:`.sfdprt`; K2, the fused
-projection-domain pipeline, in ``csrc/pipeline.cu`` with
-:mod:`.pipeline`; K4/K5, the streamed kernel of the giant-N path, in
-``csrc/stream.cu`` with :mod:`.stream`.  :mod:`.ops` wraps them with
+projection-domain pipeline, and K3, its mesh tail, in
+``csrc/pipeline.cu`` with :mod:`.pipeline`; K4/K5, the streamed kernel
+of the giant-N path, in ``csrc/stream.cu`` with :mod:`.stream`.  :mod:`.ops` wraps them with
 block resolution (:mod:`.tuning`) and is what the plan's ``cuda``
 backend dispatches to.  :mod:`._build` compiles the CUDA sources at first use.
 """

@@ -15,9 +15,10 @@ compiled default ``stream_impl="dma"``) in one launch instead of K1.
 
 A CUDA tensor always goes through the kernel (or raises); a CPU tensor
 takes the kernel's plain version (:func:`.sfdprt.sfdprt_plain`,
-:func:`.stream.stream_plain`, :func:`.pipeline.pipeline_plain`).  Not
-ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
-:func:`pipeline_tail_cuda` (the mesh pipeline's tail, K3, item 9).
+:func:`.stream.stream_plain`, :func:`.pipeline.pipeline_plain`,
+:func:`.pipeline.pipeline_tail_plain`).  :func:`pipeline_tail_cuda` is
+the shard-local tail of the mesh pipeline, K3
+(:func:`repro_torch.core.distributed.projection_pipeline_sharded`).
 """
 from __future__ import annotations
 
@@ -26,16 +27,13 @@ from typing import Optional
 import torch
 
 from ..core.dprt import accum_dtype_for, is_prime
-from .pipeline import PIPELINE_OPS, pipeline_raw
+from .pipeline import PIPELINE_OPS, pipeline_raw, pipeline_tail_raw
 from .sfdprt import _rows_contiguous, dprt_raw, idprt_raw, skew_sum_raw
 from .tuning import resolve_blocks, resolve_pipeline_blocks
 
 __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
            "skew_sum_cuda_strip", "dprt_cuda_strip",
            "projection_pipeline_cuda", "pipeline_tail_cuda"]
-
-PIPELINE_TAIL_TODO = ("pipeline_tail_cuda (the mesh pipeline's tail, "
-                      "kernel K3) is not ported yet: ROADMAP Queue 1 item 9")
 
 
 def _resolve_blocks(n: int, strip_rows: Optional[int],
@@ -199,10 +197,49 @@ def projection_pipeline_cuda(f: torch.Tensor, op: str = "conv",
 
 
 def pipeline_tail_cuda(rows, op: str = "conv", operand=None, *,
-                       row_offset=0, n: Optional[int] = None,
+                       row_offset: int = 0, n: Optional[int] = None,
                        m_block: Optional[int] = None,
                        group: Optional[int] = None,
                        lane_batch: Optional[int] = None):
-    """The mesh pipeline's shard-local tail (the reference's
-    ``pipeline_tail_pallas``, kernel K3): not ported yet."""
-    raise NotImplementedError(PIPELINE_TAIL_TODO)
+    """Shard-local pipeline tail (K3): already-assembled projection rows
+    in, per-direction op + inverse out, correction deferred.
+    Counterpart of ``repro.kernels.ops.pipeline_tail_pallas``.
+
+    ``rows``: (dirs_local, N) or (B, dirs_local, N) -- one shard of
+    direction rows, first global direction ``row_offset``; rows of
+    global index > N (the padding of the direction space) count as
+    zero.  ``operand``: the full (N+1, N) or (B|1, N+1, N) projections
+    (``conv``) or weights (``mul``), read at the shard's global
+    directions; None for ``op="none"``.  Returns ``(z, aux)`` partials in
+    the accumulator dtype -- summing both over every shard and applying
+    the -S + R'(N, i) / N correction reconstructs exactly; see
+    :func:`repro_torch.core.distributed.projection_pipeline_sharded`.
+    ``m_block`` (directions per thread block) comes from the pipeline
+    table and is capped at the shard's row count; ``group`` and
+    ``lane_batch`` change no output.
+    """
+    if op not in PIPELINE_OPS:
+        raise ValueError(f"pipeline op must be one of {PIPELINE_OPS}: {op!r}")
+    single = rows.ndim == 2
+    rb = rows[None] if single else rows
+    if n is None:
+        n = rb.shape[-1]
+    if rb.ndim != 3 or rb.shape[-1] != n:
+        raise ValueError(f"pipeline tail rows must be (…, rows, {n}), got "
+                         f"{tuple(rows.shape)}")
+    acc = accum_dtype_for(rb.dtype, n)
+    mb, _grp = resolve_pipeline_blocks(n, acc.itemsize, m_block, group)
+    mb = min(mb, rb.shape[-2])
+    if lane_batch is not None and int(lane_batch) < 1:
+        raise ValueError(f"lane_batch must be >= 1, got {lane_batch}")
+    wb = None
+    if op != "none":
+        if operand is None:
+            raise ValueError(f"pipeline op {op!r} needs an operand")
+        wb = _rows_contiguous((operand[None] if operand.ndim == 2
+                               else operand).to(acc))
+    z, aux = pipeline_tail_raw(_rows_contiguous(rb.to(acc)), wb, op=op,
+                               row_offset=int(row_offset), m_block=mb)
+    if single:
+        return z[0], aux[0]
+    return z, aux

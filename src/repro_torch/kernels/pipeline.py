@@ -1,4 +1,5 @@
-"""K2, the fused projection-domain pipeline: its launcher and plain version.
+"""K2, the fused projection-domain pipeline, and K3, its mesh tail: their
+launchers and plain versions.
 
 The port of the pipeline half of :mod:`repro.kernels.sfdprt`.  One CUDA
 source (``csrc/pipeline.cu``, CUDA C++ for ``sm_90a``) replaces the TPU
@@ -25,6 +26,16 @@ is the number of directions one thread block owns, capped by the
 shared memory a block holds (:func:`smem_blocks`); ``group`` and
 ``lane_batch`` -- the TPU kernel's conv tap group and batch-in-lanes
 width -- are validated and change no output here.
+
+K3 (the same source, entry ``pipeline_tail_launch``) replaces the TPU
+kernel with ``source="proj"``, ``defer=True``: the tail of the mesh
+pipeline (:func:`repro_torch.core.distributed.projection_pipeline_sharded`).
+It takes one shard of already-summed projection rows whose first global
+direction is ``row_offset`` and returns the shard's uncorrected inverse
+``Z`` and the op's rows 0 and N (``aux``, zero where the shard does not
+hold them); the correction waits for the sum over shards.
+:func:`pipeline_tail_raw` launches it (or, on a CPU tensor, runs
+:func:`pipeline_tail_plain`).
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ from . import _build
 from .sfdprt import SMEM_BUDGET, _DTYPES, sfdprt_plain
 
 __all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_plain", "smem_blocks",
-           "OP_LAUNCHES", "reset_launch_counts"]
+           "pipeline_tail_raw", "pipeline_tail_plain", "tail_smem_rows",
+           "OP_LAUNCHES", "TAIL_OP_LAUNCHES", "reset_launch_counts"]
 
 PIPELINE_OPS = ("none", "mul", "conv")
 _OPS = {"none": 0, "mul": 1, "conv": 2}
@@ -50,11 +62,15 @@ _OPS = {"none": 0, "mul": 1, "conv": 2}
 #: kernel, then the one that applies the correction and the floor
 #: divide once every block of an image is done).
 OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
+#: the same for K3: tail calls that launched it, by op (one call is two
+#: memsets and one kernel launch).  Only :func:`pipeline_tail_raw` adds.
+TAIL_OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
 
 
 def reset_launch_counts() -> None:
-    for op in OP_LAUNCHES:
-        OP_LAUNCHES[op] = 0
+    for counts in (OP_LAUNCHES, TAIL_OP_LAUNCHES):
+        for op in counts:
+            counts[op] = 0
 
 
 def smem_blocks(n: int, itemsize: int, m_block: int,
@@ -83,6 +99,22 @@ def smem_blocks(n: int, itemsize: int, m_block: int,
     return mb, min(n, fit - bufs * mb)
 
 
+def tail_smem_rows(n: int, itemsize: int, m_block: int, rows: int,
+                   op: str) -> int:
+    """Rows of the shard one K3 block owns: at most ``m_block`` and
+    ``rows``, and no more than fit :data:`~repro_torch.kernels.sfdprt.
+    SMEM_BUDGET` (``conv`` holds rf, rg and rc rows; ``mul``/``none`` rf
+    alone).  Raises ValueError when not even one row fits."""
+    fit = SMEM_BUDGET // (n * itemsize) // (3 if op == "conv" else 1)
+    if fit < 1:
+        raise ValueError(
+            f"one direction row of N={n} {itemsize}-byte values (with its "
+            f"operand and result rows for op={op!r}) does not fit the "
+            f"pipeline tail kernel's {SMEM_BUDGET}-byte shared-memory "
+            f"budget")
+    return max(1, min(int(m_block), int(rows), fit))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pipeline")
@@ -90,6 +122,9 @@ def _lib() -> ctypes.CDLL:
     lib.pipeline_launch.argtypes = [i32, vp, i64, vp, i64, vp, vp, i32, i32,
                                     i32, i32, i32, i32, vp]
     lib.pipeline_launch.restype = i32
+    lib.pipeline_tail_launch.argtypes = [i32, vp, i64, i32, vp, i64, vp, vp,
+                                         i32, i32, i32, i32, i32, vp]
+    lib.pipeline_tail_launch.restype = i32
     lib.pipeline_error_string.argtypes = [i32]
     lib.pipeline_error_string.restype = ctypes.c_char_p
     return lib
@@ -206,3 +241,120 @@ def pipeline_plain(f: torch.Tensor, operand: Optional[torch.Tensor] = None,
     if num.dtype.is_floating_point:
         return num / n, aux
     return torch.div(num, n, rounding_mode="floor"), aux
+
+
+def _check_tail(rows: torch.Tensor, operand, op: str, row_offset: int,
+                m_block: int) -> None:
+    if op not in _OPS:
+        raise ValueError(f"pipeline op must be one of {PIPELINE_OPS}: {op!r}")
+    if rows.ndim != 3 or rows.shape[1] < 1 or rows.shape[2] < 2:
+        raise ValueError(f"pipeline tail rows must be (B, rows, N), got "
+                         f"{tuple(rows.shape)}")
+    if rows.dtype not in _DTYPES:
+        raise TypeError(f"pipeline tail rows must be in an accumulator "
+                        f"dtype {tuple(_DTYPES)}, got {rows.dtype}")
+    if rows.stride(2) != 1 or rows.stride(1) != rows.shape[2]:
+        raise ValueError("pipeline tail rows must be contiguous")
+    if int(row_offset) < 0 or int(m_block) < 1:
+        raise ValueError(f"row_offset must be >= 0 and m_block >= 1, got "
+                         f"{row_offset}/{m_block}")
+    if op == "none":
+        if operand is not None:
+            raise ValueError("pipeline op 'none' takes no operand")
+        return
+    b, n = rows.shape[0], rows.shape[2]
+    if (operand is None or operand.ndim != 3
+            or tuple(operand.shape[1:]) != (n + 1, n)
+            or operand.shape[0] not in (1, b)):
+        raise ValueError(
+            f"pipeline tail operand for op={op!r} must be (1 or {b}, "
+            f"{n + 1}, {n}), got "
+            f"{None if operand is None else tuple(operand.shape)}")
+    if operand.dtype != rows.dtype or operand.device != rows.device:
+        raise ValueError(f"pipeline tail operand must be {rows.dtype} on "
+                         f"{rows.device}, got {operand.dtype} on "
+                         f"{operand.device}")
+    if operand.stride(2) != 1 or operand.stride(1) != n:
+        raise ValueError("pipeline tail operand rows must be contiguous")
+
+
+def pipeline_tail_raw(rows: torch.Tensor,
+                      operand: Optional[torch.Tensor] = None, *,
+                      op: str = "none", row_offset: int = 0,
+                      m_block: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K3 over ``rows`` (B, rows, N), already in the accumulator
+    dtype: one shard of summed projection rows, first global direction
+    ``row_offset``; rows of global index > N count as zero.
+
+    ``operand`` (same dtype and device): None for ``op="none"``, else
+    the FULL (B|1, N+1, N) projections (``conv``) or weights (``mul``),
+    read at the shard's global directions.  Returns ``(z, aux)``: the
+    (B, N, N) inverse of the shard's directions < N without correction
+    or divide, and the (B, 2, N) op rows 0 and N (zero where the shard
+    does not hold them).  A CUDA tensor launches the kernel on the
+    current stream (raising if the launch is refused); a CPU tensor
+    takes :func:`pipeline_tail_plain`.
+    """
+    _check_tail(rows, operand, op, row_offset, m_block)
+    if rows.device.type == "cpu":
+        return pipeline_tail_plain(rows, operand, op=op,
+                                   row_offset=row_offset)
+    if rows.device.type != "cuda":
+        raise RuntimeError(f"K3 runs on CUDA or CPU tensors, not "
+                           f"{rows.device}")
+    b, k, n = rows.shape
+    z = torch.empty((b, n, n), dtype=rows.dtype, device=rows.device)
+    aux = torch.empty((b, 2, n), dtype=rows.dtype, device=rows.device)
+    if b == 0:
+        return z, aux
+    mb = tail_smem_rows(n, rows.element_size(), m_block, k, op)
+    lib = _lib()
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    w_ptr, w_stride = None, 0
+    if operand is not None:
+        w_ptr = operand.data_ptr()
+        w_stride = operand.stride(0) if operand.shape[0] == b and b > 1 \
+            else 0
+    err = lib.pipeline_tail_launch(
+        _DTYPES[rows.dtype], rows.data_ptr(), rows.stride(0), k, w_ptr,
+        w_stride, z.data_ptr(), aux.data_ptr(), b, n, mb, int(row_offset),
+        _OPS[op], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"pipeline tail kernel launch failed (op={op}, B={b}, rows={k}, "
+            f"N={n}, row_offset={row_offset}, m_block={mb}): "
+            f"{lib.pipeline_error_string(err).decode()}")
+    TAIL_OP_LAUNCHES[op] += 1
+    return z, aux
+
+
+def pipeline_tail_plain(rows: torch.Tensor,
+                        operand: Optional[torch.Tensor] = None, *,
+                        op: str = "none", row_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3 (any device): mask the rows past
+    direction N, the per-direction op against the operand's rows at the
+    global directions, rows 0 and N into ``aux``, and K1's plain inverse
+    core of the directions < N at their global offset."""
+    b, k, n = rows.shape
+    dev, dt = rows.device, rows.dtype
+    grow = int(row_offset) + torch.arange(k, device=dev)
+    keep = (grow <= n)[None, :, None]
+    rf = torch.where(keep, rows, torch.zeros((), dtype=dt, device=dev))
+    if op == "none":
+        rc = rf
+    else:
+        win = torch.where(keep, operand[:, grow.clamp(max=n)],
+                          torch.zeros((), dtype=dt, device=dev))
+        rc = circ_conv1d_exact(rf, win) if op == "conv" else rf * win
+    aux = torch.zeros((b, 2, n), dtype=dt, device=dev)
+    for slot, direction in ((0, 0), (1, n)):
+        at = (grow == direction).nonzero()
+        if len(at):
+            aux[:, slot] = rc[:, int(at[0])]
+    live = max(0, min(k, n - int(row_offset)))   # directions < N lead
+    if live == 0:
+        return torch.zeros((b, n, n), dtype=dt, device=dev), aux
+    z = sfdprt_plain(rc[:, :live].contiguous(), sign=-1, mode="core",
+                     row_offset=int(row_offset))
+    return z, aux

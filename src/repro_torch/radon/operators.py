@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dprt import accum_dtype_for, as_dtype, dtype_name
-from ..core.plan import RadonPlan, _canonical_method, get_plan
+from ..core.plan import (RadonPlan, _canonical_method,
+                         _mesh_for_description, get_plan)
 from . import ambient
 from .autodiff import INVERSE_OF, TRANSPOSE_OF, apply_plan, trace_count
 from .fusion import flip_image, pipeline_apply
@@ -464,8 +465,9 @@ class Conv2D:
         # ambient scope, which conv resolves per call
         from ..core.conv import circ_conv2d_dprt  # lazy: conv -> radon
         p = self.plan
-        with ambient.config(batch_impl=p.batch_impl,
+        with ambient.config(mesh=p.mesh, batch_impl=p.batch_impl,
                             block_rows=p.block_rows,
+                            stream_rows=p.stream_rows,
                             block_batch=p.block_batch):
             return circ_conv2d_dprt(f, kernel, method=p.method,
                                     strip_rows=p.strip_rows,
@@ -508,14 +510,17 @@ class Conv2D:
                 f"method={self.plan.method!r})")
 
 
-def conv2d_from_description(desc: dict, kernel) -> Conv2D:
+def conv2d_from_description(desc: dict, kernel, mesh=None) -> Conv2D:
     """The port's :class:`Conv2D` for a reference ``Conv2D.describe()``
     dict and the reference operator's ``kernel`` as a numpy array: same
-    geometry, dtype, method (``pallas`` -> ``cuda``) and knobs, so both
-    packages compute the same convolution."""
+    geometry, dtype, method (``pallas`` -> ``cuda``, ``sharded_pallas``
+    -> ``sharded_cuda``) and knobs, so both packages compute the same
+    convolution.  A description on a mesh needs ``mesh=``, a DeviceMesh
+    with its dim names and sizes."""
     if desc.get("kind") != "conv2d":
         raise ValueError(f"not a Conv2D description: kind="
                          f"{desc.get('kind')!r}")
+    mesh = _mesh_for_description(desc, mesh)
     op = Conv2D(desc["image_shape"], torch.from_numpy(np.array(kernel)),
                 desc["dtype"], desc["requested_method"],
                 strip_rows=desc.get("strip_rows"),
@@ -523,7 +528,7 @@ def conv2d_from_description(desc: dict, kernel) -> Conv2D:
                 block_rows=desc.get("block_rows"),
                 stream_rows=desc.get("stream_rows"),
                 block_batch=desc.get("block_batch"),
-                mesh=desc.get("mesh"))
+                mesh=mesh)
     if op.plan.method != _canonical_method(desc["method"]):
         raise ValueError(f"description resolved to {desc['method']!r}, the "
                          f"port resolves {desc['requested_method']!r} to "
@@ -556,8 +561,12 @@ def DPRT(shape, dtype=torch.int32, method: Optional[str] = None, *,
     :func:`repro_torch.radon.config` scope, then ``method="auto"`` (the
     ``cuda`` kernel backend for int/float images).  ``stream_rows=H``
     streams giant images through ONE launch of the streamed kernel (K5)
-    each way, in strips of at most H rows.  ``mesh`` is not ported yet
-    and raises ``NotImplementedError``.
+    each way, in strips of at most H rows.  ``mesh`` (a
+    ``torch.distributed`` DeviceMesh with dims ``("data", "model")`` or
+    ``("model",)``; call on every rank) resolves ``method="auto"`` to
+    the ``sharded_cuda`` backend: image rows shard over ``"model"``, a
+    batch over ``"data"``, each rank runs K1 on its block, and every
+    rank gets the whole result.
     """
     plan = get_plan(
         tuple(int(s) for s in shape), dtype,

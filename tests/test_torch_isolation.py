@@ -50,6 +50,7 @@ def test_port_has_the_slice_modules():
                 "kernels/tuning.py", "kernels/ref.py", "kernels/_build.py",
                 "radon/operators.py", "radon/autodiff.py", "radon/fusion.py",
                 "radon/ambient.py", "launch/serve.py",
+                "core/distributed.py", "launch/mesh.py",
                 "launch/service.py", "data/synthetic.py",
                 "configs/radon_251.py"):
         assert mod in rel, mod

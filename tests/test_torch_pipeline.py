@@ -207,7 +207,25 @@ def test_smem_blocks_cap_m_block_and_reject_rows_that_do_not_fit():
 
 
 def test_pipeline_tail_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """K3 is ported now (the name dates from when the tail raised): on
+    CPU tensors ``pipeline_tail_cuda`` runs its plain version, whose
+    shard partials, summed and corrected, give the fused pipeline."""
+    rng = np.random.default_rng(11)
+    n, b = 13, 3
+    f = torch.from_numpy(rng.integers(-50, 50, (b, n, n)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-5, 6, (b, n + 1, n)).astype(np.int32))
+    rf = P.pipeline_plain(f, w, op="mul")[0]
+    rows = torch.zeros((b, 16, n), dtype=torch.int32)
+    rows[:, :n + 1] = ops.dprt_cuda(f)
+    z = aux = 0
+    for r in range(4):
+        zr, ar = ops.pipeline_tail_cuda(rows[:, 4 * r:4 * r + 4], "mul", w,
+                                        row_offset=4 * r)
+        z, aux = z + zr, aux + ar
+    s = aux[:, 0].sum(-1, dtype=torch.int32)[:, None, None]
+    got = torch.div(z - s + aux[:, 1, :, None], n, rounding_mode="floor")
+    assert torch.equal(got, rf)
+    with pytest.raises(ValueError, match="needs an operand"):
         ops.pipeline_tail_cuda(torch.zeros(4, 13, dtype=torch.int32))
 
 

@@ -144,17 +144,23 @@ def test_stream_rows_mesh_and_pipeline_raise():
     # stream_rows is ported: a streamed plan on the cuda backend
     plan = TP.get_plan((13, 13), torch.int32, stream_rows=4)
     assert plan.stream_rows == 4 and plan.method == "cuda"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the mesh is ported (item 9): it must be a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TP.get_plan((13, 13), torch.int32, mesh=object())
-    # the pipeline is ported (item 5); its mesh tail (K3) is not
+    # ... and so is the pipeline's mesh tail (K3)
     from repro_torch.kernels.ops import pipeline_tail_cuda
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="needs an operand"):
         pipeline_tail_cuda(torch.zeros(4, 13, dtype=torch.int32))
     with pytest.raises(ValueError, match="needs an operand"):
         TP.get_plan((13, 13), torch.int32).pipeline(
             torch.zeros(13, 13, dtype=torch.int32))
+    # sharded_pallas is the alias of the mesh backend, which needs a mesh
+    plan = TP.get_plan((13, 13), torch.int32, "sharded_pallas")
+    assert plan.method == "sharded_cuda"
+    with pytest.raises(ValueError, match="need mesh="):
+        plan.forward(torch.zeros(13, 13, dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown method"):
-        TP.get_plan((13, 13), torch.int32, "sharded_pallas")
+        TP.get_plan((13, 13), torch.int32, "sharded_tpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         from repro_torch.kernels.tuning import resolve_blocks
         resolve_blocks(13, 4, block_rows=2, stream_rows=2)

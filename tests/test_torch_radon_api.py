@@ -147,7 +147,7 @@ def test_serve_refuses_what_is_not_ported():
     from repro_torch.launch import serve
     for argv, item in ((["--mode", "lm"], "item 10"),
                        (["--mode", "service"], "item 8"),
-                       (["--mesh-shape", "2,2"], "item 9")):
+                       (["--mesh-shape", "2,2"], "needs 4 ranks")):
         with pytest.raises(SystemExit, match=item):
             serve.main(argv + ["--device", "cpu", "--smoke"])
     # --stream-rows is ported: the streamed route runs and is exact
