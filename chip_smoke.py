@@ -32,7 +32,10 @@ counts set to 0 just before it and read just after:
    the collectives as sums), against K2 and a numpy oracle.
 
 It checks that each path ran through its kernels without rebuilding
-anything in the timed loop, and times every kernel against its bound.
+anything in the timed loop, fails if ptxas spills registers in any
+instantiation of the streamed kernel, and times every kernel against its
+bound (the streamed kernel also with its design, registers, SASS
+instructions per shared load and a sweep of directions per block).
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
@@ -145,6 +148,93 @@ def build_phase() -> None:
         text = _build.build_log(name).strip()
         if text:
             log(f"nvcc output for {name}:\n{text}")
+
+
+#: the streamed kernel's instantiations: mangled type code -> dtype name
+_STREAM_TYPES = {"i": "int32", "l": "int64", "f": "float32",
+                 "d": "float64"}
+
+
+def _stream_instance(mangled: str):
+    """(dtype name, impl) of a mangled ``stream_kernel<T, impl>``, else
+    None."""
+    m = re.search(r"stream_kernelI([ilfd])Li(\d)E", mangled)
+    if m is None:
+        return None
+    return _STREAM_TYPES[m.group(1)], ("grid", "dma")[int(m.group(2))]
+
+
+def ptxas_stream_report() -> dict:
+    """ptxas's registers and spill bytes per streamed-kernel instantiation,
+    from this run's build log: {(dtype, impl): {"regs", "spill_stores",
+    "spill_loads"}}."""
+    from repro_torch.kernels import _build
+    report, current = {}, None
+    for line in _build.build_log("stream").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)", line)
+        if m:
+            current = _stream_instance(m.group(1))
+            continue
+        if current is None:
+            continue
+        entry = report.setdefault(current, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["regs"] = int(m.group(1))
+    return report
+
+
+def sass_hot_blocks(lib_path) -> dict:
+    """For each streamed-kernel instantiation in the library at
+    ``lib_path`` (``cuobjdump -sass``), the basic block with the most
+    shared-memory loads: its instructions, its LDS count and
+    instructions per LDS (each LDS feeds one add, so this is the inner
+    loop's instructions per add).  Blocks split at labels and after
+    branches."""
+    import os
+    from torch.utils.cpp_extension import CUDA_HOME
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         str(lib_path)], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    out, name, blocks = {}, None, []
+
+    def close():
+        if name is not None and blocks:
+            best = max(blocks, key=lambda blk: blk["lds"])
+            if best["lds"]:
+                best = dict(best, per_lds=best["instructions"] / best["lds"])
+            out[name] = best
+
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            name, blocks = _stream_instance(m.group(1)), []
+            blocks.append({"instructions": 0, "lds": 0})
+            continue
+        if name is None:
+            continue
+        if re.match(r"\s*\.L_\w+:", line):
+            blocks.append({"instructions": 0, "lds": 0})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if not m:
+            continue
+        op = re.sub(r"^@!?U?P\w+\s+", "", m.group(1).strip()).split()[0]
+        blk = blocks[-1]
+        blk["instructions"] += 1
+        blk["lds"] += op.startswith("LDS")
+        if op.split(".")[0] in ("BRA", "EXIT", "RET", "JMP", "BRX"):
+            blocks.append({"instructions": 0, "lds": 0})
+    close()
+    return out
 
 
 def kernel_phase() -> dict:
@@ -702,14 +792,23 @@ ACCEPT_N = 2053
 #: small N, the table's blocks at the giant ones
 STREAM_CHECK_NS = (5, 13, 61, 251)
 STREAM_OVERFLOW_NS = (13, 251)
+#: the register tile's edges: N whose column runs of 32*cols do not
+#: divide it (31: one short run; 421: a second run of 5 columns), with
+#: m_block 1 (the block of row N holds no item) and 5 (row N shares its
+#: block; the last block is short), stage heights that do not divide N
+STREAM_EDGE_NS = (31, 421)
+STREAM_EDGE_MBLOCKS = (1, 5)
+STREAM_EDGE_HEIGHTS = (3, 7)
 
 
 def stream_kernel_phase() -> dict:
     """K4 (grid) and K5 (dma) against their plain version: every mode,
-    sign +-1, row_offset partials, strip heights 1, 7, the table's and
-    > N, batch 1 and 3, int32/int64 bit-exact (incl. int32 overflow and
-    negative numerators of the inverse), float32/float64 within K1's
-    tolerance; N = 2053 at the table's strip height; one N = 4099
+    sign +-1, row_offset partials (whose (N - 2)*N batch stride leaves
+    images unaligned), strip heights 1, 7, the table's and > N, batch 1
+    and 3, int32/int64 bit-exact (incl. int32 overflow and negative
+    numerators of the inverse), float32/float64 within K1's tolerance;
+    the register tile's edges (N = 31 and 421, m_block 1 and 5, stage
+    heights 3 and 7); N = 2053 at the table's strip height; one N = 4099
     forward per impl; and one launch per call whatever the strip count."""
     import numpy as np
     import torch
@@ -717,6 +816,10 @@ def stream_kernel_phase() -> dict:
     from repro_torch.kernels import stream as ST
     from repro_torch.kernels.tuning import pallas_block_spec
 
+    spills = {key: v for key, v in ptxas_stream_report().items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        fail(f"ptxas spills registers in the streamed kernel: {spills}")
     rng = np.random.default_rng(6)
     dev = torch.device("cuda")
     dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
@@ -766,6 +869,16 @@ def stream_kernel_phase() -> dict:
                     for label, x, kw in runs_for(g, part, corr, n):
                         check(f"{label} N={n} H={h} M={tm} B={b} {dt}", x,
                               h, tm, kw)
+    for n in STREAM_EDGE_NS:                 # the register tile's edges
+        for mb in STREAM_EDGE_MBLOCKS:
+            for h in STREAM_EDGE_HEIGHTS:
+                for dt in dtypes:
+                    g = make(dt, (2, n, n))
+                    part = make(dt, (2, n - 2, n))
+                    corr = make(dt, (2, n), -5000, 5000)
+                    for label, x, kw in runs_for(g, part, corr, n):
+                        check(f"edge {label} N={n} H={h} M={mb} {dt}", x, h,
+                              mb, kw)
     big = 2 ** 28
     for n in STREAM_OVERFLOW_NS:             # int32 overflow
         th, tm = pallas_block_spec(n)
@@ -934,20 +1047,42 @@ def giant_main_path_phase() -> dict:
     return launches
 
 
+def sm_clock_mhz() -> tuple:
+    """(current, max) SM clock of card 0 from nvidia-smi, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
 def stream_timing_phase(launches: dict, worst: dict) -> list:
     """K4 and K5 vs their plain version and vs K1 at the giant-N path's
-    shape (N = 4099, B = 4, int32, stream_rows 256), per mode, and K5
-    forward on the uint8 image's int64 accumulators."""
+    shape (N = 4099, B = 4, int32, stream_rows 256), per mode, with each
+    row's design (directions per block, the register tile, stage rows and
+    ring depth) and ptxas's registers and spills; K5 forward also at the
+    largest direction block the registers allow (the tile lowers it to
+    fill the waves of SMs) and at ``radon_251`` beside K1; K5 forward on
+    the uint8 image's int64 accumulators."""
     import numpy as np
     import torch
+    from repro_torch.configs.radon_251 import config
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import _build
     from repro_torch.kernels import sfdprt as S
     from repro_torch.kernels import stream as ST
-    from repro_torch.kernels.tuning import pallas_block_spec, stream_tile
+    from repro_torch.kernels.tuning import (STREAM_WARPS, pallas_block_spec,
+                                            stream_tile)
 
     n, b, sr = GIANT_N, GIANT_BATCH, GIANT_STREAM_ROWS
     _, mb = pallas_block_spec(n)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptx = ptxas_stream_report()
+    sass = sass_hot_blocks(_build._lib_path("stream"))
+    log(f"ptxas (registers, spill bytes) by instantiation: {ptx}")
+    log(f"SASS hot block by instantiation: {sass}")
     f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
     r = S.dprt_raw(f, m_block=mb, stream_rows=sr)
     corr = (r[:, n, :] - r[:, 0, :].sum(1, keepdim=True,
@@ -970,6 +1105,24 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
         return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                        else "operations")
 
+    def design(t, impl, batch, dtype):
+        return {"directions_per_block": t.m_block, "cols_per_lane": t.cols,
+                "items_per_warp": t.items, "consumer_warps": t.warps,
+                "producer_warps": int(impl == "dma"),
+                "stage_rows": t.stage_rows, "ring_slots": t.slots,
+                "cluster": 1, "pad_cols": t.pad, "smem_bytes": t.smem,
+                "blocks": batch * t.blocks,
+                "image_rereads": t.blocks,
+                "ptxas": ptx.get((dtype, impl)),
+                "sass_hot_block": sass.get((dtype, impl))}
+
+    def rates(k_ms, adds, t, batch, nbytes_image, clock_mhz):
+        secs = k_ms * 1e-3
+        return {"adds_per_clock_per_sm": adds / (secs * clock_mhz * 1e6
+                                                 * sms),
+                "reread_tb_s": batch * t.blocks * nbytes_image / secs / 1e12,
+                "sm_clock_mhz": clock_mhz}
+
     plain = {}
     for mode, (x, kw, _, _) in cases.items():
         # the plain version at B = 1, scaled to B (it is linear in B)
@@ -981,11 +1134,12 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     rows = []
     for impl in ST.STREAM_IMPLS:
         for mode, (x, kw, elems, ops) in cases.items():
-            stage, mbe = stream_tile(n, n, 4, sr, mb, n + 1 if mode ==
-                                     "forward" else n, impl)
+            t = stream_tile(n, n, 4, sr, mb, n + 1 if mode == "forward"
+                            else n, impl, batch=b, sms=sms)
             k_ms = cuda_ms(lambda: ST.stream_raw(
                 x, stream_rows=sr, m_block=mb, stream_impl=impl, **kw),
                 reps=GIANT_TIMING_REPS, warm=1)
+            clock = sm_clock_mhz()[0]
             b_ms, by = bound(4 * elems, ops)
             rows.append({
                 "name": f"stream_kernel[{impl},{mode}]",
@@ -1002,17 +1156,36 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
                 # no PyTorch call computes the skew-sum
                 "library_ms": None,
                 "shape": f"N={n} B={b} int32 stream_rows={sr}",
-                "stage_rows": stage,
-                "m_block": mbe,
-                "decomposition": f"block = (image, {mbe} directions x all "
-                                 f"{n} columns), 1024 threads, "
-                                 f"{'2 stages' if impl == 'dma' else '1 stage'}"
-                                 f" of {stage} rows",
+                "design": design(t, impl, b, "int32"),
+                **rates(k_ms, b * n ** 3, t, b, 4 * n * n, clock),
             })
             log(f"timing stream {impl} {mode}: kernel {k_ms:.4f} ms, plain "
                 f"(B=1 x {b}) {plain[mode]:.4f} ms, bound {b_ms:.4f} ms "
-                f"({by}; N={n} B={b} int32 stream_rows={sr} -> stages of "
-                f"{stage} rows, {mbe} directions per block)")
+                f"({by}; N={n} B={b} int32 stream_rows={sr}; "
+                f"{rows[-1]['design']}; "
+                f"{rows[-1]['adds_per_clock_per_sm']:.2f} adds/clock/SM at "
+                f"{clock:.0f} MHz, rereads {rows[-1]['reread_tb_s']:.2f} "
+                f"TB/s)")
+    k5_fwd = next(row for row in rows
+                  if row["name"] == "stream_kernel[dma,forward]")
+    # K5 forward by directions per block D, from the largest the registers
+    # allow: a block's cost against D (kernels/tuning.py:STREAM_BLOCK_COST)
+    t = stream_tile(n, n, 4, sr, mb, n + 1, "dma", batch=b, sms=sms)
+    dmax = min(mb, n + 1, STREAM_WARPS["dma"] * t.items // t.runs)
+    by_d = {}
+    for d in sorted({dmax, dmax - 2, 5, 1}, reverse=True):
+        warps = -(-d * t.runs // t.items)
+        tile_d = t._replace(m_block=d, warps=warps, blocks=-(-(n + 1) // d))
+        d_ms = cuda_ms(lambda: ST.stream_launch_tile(
+            f, tile_d, sign=1, mode="forward", stream_impl="dma"),
+            reps=2, warm=1)
+        waves = -(-b * tile_d.blocks // sms)
+        by_d[d] = {"ms": d_ms, "blocks": b * tile_d.blocks, "waves": waves,
+                   "ms_per_block": d_ms / waves}
+        log(f"timing stream dma forward at D={d} ({warps} warps, "
+            f"{b * tile_d.blocks} blocks, {waves} waves): {d_ms:.4f} ms, "
+            f"{d_ms / waves:.4f} ms per block")
+    k5_fwd["by_directions_per_block"] = by_d
     # the comparison: K1 forward at the same shape, through its row tiles
     # (no stream_rows); K1 is not on this path, so it is a field of the
     # K5 forward row, not a row of its own
@@ -1021,22 +1194,39 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
                                      strip_rows=th, m_block=mb),
                     reps=GIANT_TIMING_REPS, warm=1)
     tile = S.smem_tile_rows(n, n, 4, th)
-    for row in rows:
-        if row["name"] == "stream_kernel[dma,forward]":
-            row["k1_same_shape_ms"] = k1_ms
-            row["k1_same_shape"] = (f"K1 forward, row tiles of {tile} rows, "
-                                    f"m_block {mb}")
+    k5_fwd["k1_same_shape_ms"] = k1_ms
+    k5_fwd["k1_same_shape"] = (f"K1 forward, row tiles of {tile} rows, "
+                               f"m_block {mb}")
     log(f"timing K1 forward at N={n} B={b}: {k1_ms:.4f} ms (row tiles of "
         f"{tile} rows, m_block {mb}; partial sums in the output between "
         f"tiles)")
+    # K5 forward at radon_251 (N = 251, B = 256, stream_rows 251) beside
+    # K1 there: data for the K1 redesign, not a route
+    cfg = config()
+    n1, b1 = cfg.n, cfg.batch
+    h1, mb1 = pallas_block_spec(n1)
+    f1 = torch.from_numpy(radon_images(n1, b1, kind="phantom")).to(dev)
+    k5_251 = cuda_ms(lambda: ST.stream_raw(f1, sign=1, mode="forward",
+                                           stream_rows=n1, m_block=mb1))
+    k1_251 = cuda_ms(lambda: S.sfdprt(f1, sign=1, mode="forward",
+                                      strip_rows=h1, m_block=mb1))
+    t1 = stream_tile(n1, n1, 4, n1, mb1, n1 + 1, "dma", batch=b1, sms=sms)
+    k5_fwd["radon_251_ms"] = k5_251
+    k5_fwd["radon_251_k1_ms"] = k1_251
+    k5_fwd["radon_251_design"] = design(t1, "dma", b1, "int32")
+    log(f"timing at radon_251 (N={n1} B={b1} int32) forward: K5 "
+        f"{k5_251:.4f} ms (stream_rows {n1}; {t1.m_block} directions per "
+        f"block, stages of {t1.stage_rows} rows x {t1.slots}), K1 "
+        f"{k1_251:.4f} ms")
     # K5 forward on int64 accumulators (the uint8 image), B = 1; an int64
     # add is counted as two int32 operations (add with carry)
     u = torch.from_numpy(np.random.default_rng(13).integers(
         0, 256, (1, n, n))).to(dev)
-    stage, mbe = stream_tile(n, n, 8, sr, mb, n + 1, "dma")
+    t = stream_tile(n, n, 8, sr, mb, n + 1, "dma", batch=1, sms=sms)
     k_ms = cuda_ms(lambda: ST.stream_raw(u, sign=1, mode="forward",
                                          stream_rows=sr, m_block=mb),
                    reps=GIANT_TIMING_REPS, warm=1)
+    clock = sm_clock_mhz()[0]
     p_ms = cuda_ms(lambda: ST.stream_plain(u, sign=1, mode="forward",
                                            stream_rows=sr), reps=1, warm=0)
     b_ms, by = bound(8 * (n * n + (n + 1) * n), 2 * (n ** 3 + n * n))
@@ -1054,12 +1244,13 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
         "bound_note": "an int64 add counted as two int32 operations",
         "library_ms": None,
         "shape": f"N={n} B=1 int64 stream_rows={sr}",
-        "stage_rows": stage,
-        "m_block": mbe,
+        "design": design(t, "dma", 1, "int64"),
+        **rates(k_ms, n ** 3, t, 1, 8 * n * n, clock),
     })
     log(f"timing stream dma forward int64 N={n} B=1: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; stages of "
-        f"{stage} rows, {mbe} directions per block)")
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+        f"{rows[-1]['design']}; {rows[-1]['adds_per_clock_per_sm']:.2f} "
+        f"adds/clock/SM, rereads {rows[-1]['reread_tb_s']:.2f} TB/s)")
     return rows
 
 

@@ -16,57 +16,93 @@
 //
 // The contract it keeps from the TPU kernels: the whole strip loop runs in
 // one launch, the partial sums stay on chip for all of it, and the output
-// is written exactly once.  K1 instead keeps its partial sums in the output
-// between row tiles; at N = 4099 that round trip is ~80 GB per image.
+// is written exactly once.
 //
-// Design.  One thread block (1024 threads) per (image b, block of m_block
-// output rows); the block owns all N columns of its rows, because output
-// (m, d) reads g[i, <d + sign*m*(off+i)>_N], which can be any column, so a
-// block must see whole rows.  Its m_block x N partial sums live in shared
-// memory in the unsigned type of T's width (integers) or T (floats).  The
-// image streams through two shared-memory stages of stage_rows rows each:
+// What bounds it.  The work is B*N^3 adds (2.75e11 int32 adds at N = 4099,
+// B = 4: 16.4 ms at the card's 16.75e12 int32 adds/s).  Each add needs one
+// shared-memory load of a staged image element, and a skew-sum gives no
+// reuse of a loaded word across outputs, so the 128 bytes per clock of an
+// SM's shared memory cap it lower: one 4-byte word per add is 32 adds per
+// clock per SM, 32.9 ms at that shape; writing the stages into shared
+// memory takes ~12% more of the same bandwidth at 9 directions per block.
+// Every block also reads the whole image from L2 once (456 rereads per
+// image at that shape).  The design spends ~1.65 other instructions per
+// add (SASS: 207 instructions for 78 loads and adds in the inner loop), so
+// neither instruction issue nor registers stand in the way of those two.
 //
-//   grid (K4)  each stage is loaded synchronously (load, __syncthreads,
-//              compute) -- the strip loop of the TPU grid, inside the block;
-//   dma (K5)   stage k+1 is copied with cp.async (commit/wait groups) while
-//              stage k is summed: the double buffer of the TPU kernel.
+// Design.  One thread block per (image b, block of D output rows), with
+// `warps` consumer warps; the block owns all N columns of its rows,
+// because output (m, d) reads g[i, <d + sign*m*(off+i)>_N], which can be
+// any column.  The partial sums live in registers for the whole strip
+// loop:
 //
-// For each stage, each thread walks outputs (m, d), d fastest, so a warp
-// reads neighbouring shared-memory words; it sums the stage's rows in a
-// register (index stepped by sign*m mod N, minus N on wrap, as in K1) and
-// adds that sum once into the shared accumulator.  A stage's start index
-// per direction, <sign*m*(off + t0)>_N, is computed once per stage into a
-// small shared table, so no modulus runs per output.  The block that owns
-// row N (forward mode) sums each staged row with one warp and a shuffle
-// reduction and adds it at the row's global column.  After the last stage
-// the block applies the inverse epilogue and writes its rows once.
+//   * an item is (direction m, column run c) with 32*kCols columns; lane L
+//     of the warp that holds it owns the kCols outputs d = 32*kCols*c + L
+//     + 32*j, j < kCols;
+//   * a warp holds kItems items, consecutive in (m, c) order, so a block
+//     holds D * runs <= warps * kItems of them (runs = ceil(N / 32kCols));
+//     items past the block's last are dead (step 0, window 0): the loop
+//     runs them without a test and nothing they add is stored;
+//   * for each staged row every item steps one window base w = <32kCols*c
+//     + sign*m*r>_N (add <sign*m>_N, subtract N on wrap) and lane L adds
+//     row[w + L + 32j] for j < kCols: 32 consecutive words across the warp
+//     (no bank conflicts), at immediate offsets from one address.
 //
-// Shared memory is bounded whatever N is: the caller (kernels/tuning.py:
-// stream_tile) picks m_block and stage_rows so that accumulators, the
-// per-direction table and two stages (one for grid) fit 227 KB, and raises
-// when not one direction and one row do.  stream_rows only caps stage_rows:
-// at N = 4099 int32 one row is 16,396 bytes, so a 256-row strip (4.2 MB)
-// streams as stages of 3 rows beside 7 directions of accumulators.  Integer
-// results do not depend on either.
+// The wrap inside a lane's run is handled by padding, not by a test per
+// element: every staged row is followed in shared memory by its first
+// P = 32*kCols - 1 columns again (column x of the padded row is column
+// x mod N), so the window [w, w + 32kCols) never leaves the padded row.
+// Padding was chosen over a split point with two base pointers because it
+// keeps the inner loop free of compares and selects whatever w is; a split
+// costs a select per element in the ~32kCols/N of windows that wrap, and
+// for N < 32kCols every window wraps.  It costs P extra words per staged
+// row (10% at N = 4099), copied inside shared memory once the row is there.
 //
-// The reckoning at the main path's shape (N = 4099, B = 4, int32): 7
-// directions per block, 586 blocks per image, 2,344 blocks in all, one per
-// SM (213 KB of shared memory); each block reads the 67 MB image once, so
-// each image is read 586 times (39 GB per image, 157 GB in all).  Blocks
-// start in waves of 132 and walk the stages in step, so most of those
-// reads hit L2; at the L2's several TB/s that is well under the time the
-// adds take.  The work is B*N^3 = 2.75e11 int32 adds (16.4 ms at the
-// card's 16.75e12 int32 adds/s), so operations bound it; each add here
-// also costs a shared-memory load and an index step, and each stage an
-// accumulator load and store per output.  Register tiling is later work.
+// The image streams through shared memory in stages of stage_rows rows,
+// each row in a 16-byte aligned slot of row_bytes at the same address mod
+// 16 as its source, so its 16-byte aligned interior is one aligned block
+// and its ends [0, lo) and [hi, N) are at most 16 bytes together:
 //
-// TMA is not used: a tensor map needs 16-byte row strides, and a row of N
-// prime int32 values (4N bytes) never has one.  A stage is S consecutive
-// rows, i.e. one contiguous run of S*N elements, so it is copied as 16-byte
-// cp.async vectors over its aligned interior and element copies at the two
-// ends; the stage sits in shared memory at the same address mod 16 as its
-// source.  The last stage is shorter when stage_rows does not divide rows:
-// it copies and sums only the rows that exist.
+//   grid (K4)  one stage: the whole block copies it with cp.async (16-byte
+//              vectors over the interiors, elements at the ends), waits,
+//              __syncthreads, pads, __syncthreads, sums, __syncthreads --
+//              the strip loop of the TPU grid, inside the block;
+//   dma (K5)   a ring of `slots` stages fed by one producer warp beside the
+//              consumers and signalled by mbarriers, not block-wide
+//              barriers.  The producer issues stage k -- one cp.async.bulk
+//              per row interior, whose bytes the copy engine completes on
+//              landed[s], and element cp.async for the ends, whose lanes
+//              arrive on landed[s] through cp.async.mbarrier.arrive.noinc
+//              -- then waits for stage k - 1 to land, pads its rows from
+//              shared memory and arrives on full[s]; the consumers wait on
+//              full[s] and each warp arrives on empty[s] when done, which
+//              frees slot s for stage k + slots.  This route serves every
+//              operand alignment: the forward operand's image b starts at
+//              4b mod 16 bytes when N^2 is odd, the row_offset partials
+//              have a (N - 2)*N batch stride.  The producer shares its
+//              scheduler with ~4 consumer warps, so it must issue little
+//              and never stall: copying the padding from global memory with
+//              4-byte cp.async, or loading the ends synchronously, made it
+//              set the pace of the rows.
+//
+// TMA tensor maps are not used: they need 16-byte global strides, and a
+// row of N prime 4- or 8-byte values never has one.
+//
+// The block that owns row N (forward mode) has no items for it: its
+// consumer warps share the staged rows, sum each with a shuffle reduction
+// and write R(N, col) for the row's global position col straight to the
+// output (each column once); the columns no row reaches are written zero
+// at the end.  After the last stage every lane writes its valid outputs
+// (d < N) once, applying the inverse epilogue.
+//
+// kCols and kItems are template constants per accumulator width (Shape
+// below), so the item and column loops unroll into independent loads and
+// adds on fixed registers; the host (kernels/tuning.py:stream_tile) holds
+// the same constants, picks D, warps, stage_rows and slots from them and
+// the budgets (65,536 registers and 227 KB of shared memory per SM, one
+// block per SM at giant N), and this file checks the geometry it is given.
+// stream_rows only caps stage_rows, m_block only caps D; integer results
+// depend on neither.
 //
 // Integer rules that differ from JAX: signed overflow is undefined in C++
 // while JAX wraps, so every integer sum runs in the unsigned type of the
@@ -88,8 +124,30 @@ constexpr int kForward = 1;
 constexpr int kInverse = 2;
 constexpr int kGrid = 0;
 constexpr int kDma = 1;
-constexpr int kThreads = 1024;
+// Consumer warps per block, at most: K5's 15 and its producer warp are 16
+// warps, which leave ptxas 128 registers a thread (a 17th warp spills);
+// K4, whose consumers also copy the stages, spills at 14 and 15 warps too
+// (ptxas still allots 128) and takes 12.
+template <int kImpl>
+constexpr int kWarps = kImpl == kDma ? 15 : 12;
+constexpr int kMaxSlots = 8;      // stages in K5's ring, at most
+constexpr int kBarrierBytes = 3 * kMaxSlots * 8;  // landed[], full[], empty[]
 constexpr size_t kSmemMax = 232448;  // 227 KB, a block's opt-in maximum
+
+// The register tile per accumulator width: kCols columns per lane per item,
+// kItems items per warp (kernels/tuning.py:STREAM_SHAPES holds the same).
+template <int kBytes>
+struct Shape;
+template <>
+struct Shape<4> {
+  static constexpr int kCols = 13;
+  static constexpr int kItems = 6;
+};
+template <>
+struct Shape<8> {
+  static constexpr int kCols = 7;
+  static constexpr int kItems = 6;
+};
 
 // The arithmetic type: the unsigned type of the same width for integers
 // (wrapping, defined), the type itself for floats.
@@ -119,199 +177,427 @@ __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// Shared-memory layout, the same on host and device: accumulators, the
-// per-direction start table, then `slots` stages with 16 bytes of slack
-// each (a stage starts at its source's address mod 16).
-template <typename T>
-__host__ __device__ size_t acc_bytes(int m_block, int n) {
-  return align16(static_cast<size_t>(m_block) * n * sizeof(arith_t<T>));
-}
-__host__ __device__ inline size_t table_bytes(int m_block) {
-  return align16(static_cast<size_t>(m_block) * sizeof(int));
-}
-template <typename T>
-__host__ __device__ size_t slot_bytes(int stage_rows, int n) {
-  return align16(static_cast<size_t>(stage_rows) * n * sizeof(T) + 16);
-}
+// What the host decided (kernels/tuning.py:stream_tile) plus what follows
+// from it; checked by stream_launch before any launch.
+struct Geometry {
+  long long g_bstride;
+  long long row_offset;
+  int rows, n, out_rows;
+  int dirs;        // D, directions per block
+  int n_dblocks;   // direction blocks per image
+  int runs;        // column runs per direction, ceil(N / 32kCols)
+  int warps;       // consumer warps per block
+  int stage_rows;  // rows per stage
+  int slots;       // stages in the ring (1 for K4)
+  int row_bytes;   // bytes of one padded row slot, a multiple of 16
+  int pad;         // padding columns after each staged row, 32kCols - 1
+  int sign, mode, off_mod;
+};
 
+// ---------------------------------------------------------------------------
+// mbarrier, bulk and element async copies (PTX, sm_90)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Order this thread's generic-proxy accesses of shared memory (the
+// producer's padding writes; the consumers' reads, seen through the empty
+// barrier) before the async-proxy writes of a bulk copy that refills it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 template <int kBytes>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
                  : "memory");
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(gmem), "n"(kBytes)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(kBytes)
                  : "memory");
   }
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+// Arrive on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// One bulk copy global -> shared; the copy engine completes `bytes` on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// Where stage `src` lands in slot `slot`: the same address mod 16.
+// ---------------------------------------------------------------------------
+// one staged row: where it lands and how it is copied
+// ---------------------------------------------------------------------------
+// Row `src` lands in its slot at the same address mod 16, so its interior
+// [lo, hi) (16-byte aligned on both sides) is one aligned block; columns
+// [0, lo) and [hi, N) are its ends (at most 16 bytes together).
 template <typename T>
-__device__ __forceinline__ T* stage_dst(unsigned char* slot, const T* src) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  return reinterpret_cast<T*>(slot + (a & 15));
-}
-
-// Copy count contiguous elements src -> dst asynchronously: element copies
-// up to the first 16-byte boundary, 16-byte vectors, element copies after.
+struct RowSplit {
+  const T* src;
+  T* dst;
+  int lo, hi;
+};
 template <typename T>
-__device__ void stage_async(T* dst, const T* src, long long count) {
+__device__ __forceinline__ RowSplit<T> row_split(unsigned char* slot,
+                                                 const T* src, int n) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  int lo = ((16 - mis) & 15) / static_cast<int>(sizeof(T));
+  if (lo > n) lo = n;
   constexpr int kVec = 16 / sizeof(T);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  long long head = static_cast<long long>(((16 - (a & 15)) & 15) / sizeof(T));
-  if (head > count) head = count;
-  const long long nvec = (count - head) / kVec;
-  const long long tail = head + nvec * kVec;
-  for (long long e = threadIdx.x; e < head; e += blockDim.x) {
-    cp_async<sizeof(T)>(dst + e, src + e);
+  const int hi = lo + (n - lo) / kVec * kVec;
+  return {src, reinterpret_cast<T*>(slot + mis), lo, hi};
+}
+
+// Copy the ends of rows [src, src + ht*n) into `slot` with cp.async,
+// thread `tid` of `count` threads: a few elements a row.
+template <typename T>
+__device__ void copy_ends(unsigned char* slot, const T* src, int ht, int n,
+                          int row_bytes, int tid, int count) {
+  for (int i = 0; i < ht; ++i) {
+    const RowSplit<T> r = row_split(slot + static_cast<size_t>(i) * row_bytes,
+                                    src + static_cast<long long>(i) * n, n);
+    for (int e = tid; e < r.lo + (n - r.hi); e += count) {
+      const int x = e < r.lo ? e : r.hi + (e - r.lo);
+      cp_async<sizeof(T)>(r.dst + x, r.src + x);
+    }
   }
-  for (long long v = threadIdx.x; v < nvec; v += blockDim.x) {
-    cp_async<16>(dst + head + v * kVec, src + head + v * kVec);
+}
+
+// Fill the padding of the staged rows from the rows themselves, already in
+// `slot`: column n + e is column e mod n, e < pad.  Each thread loads 16
+// bytes of columns before it stores them, so its loads overlap; the modulus
+// runs only when the padding is longer than the row (N < pad).
+template <typename T>
+__device__ void pad_rows(unsigned char* slot, const T* src, int ht, int n,
+                         int row_bytes, int pad, int tid, int count) {
+  for (int i = 0; i < ht; ++i) {
+    T* row = reinterpret_cast<T*>(
+        slot + static_cast<size_t>(i) * row_bytes +
+        (reinterpret_cast<uintptr_t>(src + static_cast<long long>(i) * n) &
+         15));
+    if (pad > n) {
+      for (int e = tid; e < pad; e += count) row[n + e] = row[e % n];
+      continue;
+    }
+    constexpr int kBatch = 16 / sizeof(T);
+    for (int e0 = tid; e0 < pad; e0 += kBatch * count) {
+      T v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (e0 + u * count < pad) v[u] = row[e0 + u * count];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (e0 + u * count < pad) row[n + e0 + u * count] = v[u];
+      }
+    }
   }
-  for (long long e = tail + threadIdx.x; e < count; e += blockDim.x) {
-    cp_async<sizeof(T)>(dst + e, src + e);
+}
+
+// K5's producer, first half: issue stage rows [src, src + ht*n) into
+// `slot`.  Lane 0 expects the interiors' bytes on `landed` and bulk-copies
+// them; the lanes copy the ends and arrive on `landed` once they land.
+template <typename T>
+__device__ void issue_stage(unsigned char* slot, const T* src, int ht, int n,
+                            int row_bytes, uint64_t* landed, int lane) {
+  if (lane == 0) {
+    uint32_t bytes = 0;
+    for (int i = 0; i < ht; ++i) {
+      const RowSplit<T> r = row_split(slot + static_cast<size_t>(i) * row_bytes,
+                                      src + static_cast<long long>(i) * n, n);
+      bytes += static_cast<uint32_t>((r.hi - r.lo) * sizeof(T));
+    }
+    fence_proxy_async();
+    mbar_arrive_expect_tx(landed, bytes);
+    for (int i = 0; i < ht; ++i) {
+      const RowSplit<T> r = row_split(slot + static_cast<size_t>(i) * row_bytes,
+                                      src + static_cast<long long>(i) * n, n);
+      if (r.hi > r.lo) {
+        bulk_copy(r.dst + r.lo, r.src + r.lo,
+                  static_cast<uint32_t>((r.hi - r.lo) * sizeof(T)), landed);
+      }
+    }
+  }
+  copy_ends(slot, src, ht, n, row_bytes, lane, 32);
+  cp_async_arrive(landed);
+}
+
+// K4's load: the whole block copies stage rows [src, src + ht*n) into
+// `slot` (16-byte cp.async over the interiors, element copies at the
+// ends), waits for all of it, then pads the rows: load, wait, and only
+// then sum, as the TPU grid kernel does.
+template <typename T>
+__device__ void load_stage(unsigned char* slot, const T* src, int ht, int n,
+                           int row_bytes, int pad) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (int i = 0; i < ht; ++i) {
+    const RowSplit<T> r = row_split(slot + static_cast<size_t>(i) * row_bytes,
+                                    src + static_cast<long long>(i) * n, n);
+    for (int v = threadIdx.x; v < (r.hi - r.lo) / kVec; v += blockDim.x) {
+      cp_async<16>(r.dst + r.lo + v * kVec, r.src + r.lo + v * kVec);
+    }
+  }
+  copy_ends(slot, src, ht, n, row_bytes, threadIdx.x, blockDim.x);
+  cp_async_wait_all();
+  __syncthreads();
+  pad_rows(slot, src, ht, n, row_bytes, pad, threadIdx.x, blockDim.x);
+}
+
+// The consumers' inner loop over one stage: for each staged row, each of
+// the warp's items adds kCols words of the padded row into its registers
+// and steps its window base.  Dead items (step 0, window 0) run too: no
+// test per item, and what they add is never stored.
+template <typename T>
+__device__ __forceinline__ void sum_stage(
+    arith_t<T> (&acc)[Shape<sizeof(T)>::kItems][Shape<sizeof(T)>::kCols],
+    int (&w)[Shape<sizeof(T)>::kItems],
+    const int (&step)[Shape<sizeof(T)>::kItems], const unsigned char* slot,
+    const T* src, int ht, int n, int row_bytes, int lane) {
+  using U = arith_t<T>;
+  constexpr int K = Shape<sizeof(T)>::kCols;
+  constexpr int I = Shape<sizeof(T)>::kItems;
+  for (int i = 0; i < ht; ++i) {
+    const int mis = static_cast<int>(
+        reinterpret_cast<uintptr_t>(src + static_cast<long long>(i) * n) & 15);
+    const T* row = reinterpret_cast<const T*>(
+                       slot + static_cast<size_t>(i) * row_bytes + mis) +
+                   lane;
+#pragma unroll
+    for (int u = 0; u < I; ++u) {
+      const T* q = row + w[u];
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc[u][j] += static_cast<U>(q[32 * j]);
+      const int x = w[u] + step[u];
+      w[u] = x >= n ? x - n : x;
+    }
   }
 }
 
 template <typename T, int kImpl>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const T* __restrict__ g, long long g_bstride,
-              const T* __restrict__ corr, T* __restrict__ out, int rows,
-              int n, int out_rows, int m_block, int n_mblocks, int stage_rows,
-              int sign, int mode, int off_mod, long long row_offset) {
+__global__ void __launch_bounds__((kWarps<kImpl> + (kImpl == kDma ? 1 : 0)) *
+                                      32,
+                                  1)
+stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
+              T* __restrict__ out, const Geometry geo) {
   using U = arith_t<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  U* acc = reinterpret_cast<U*>(smem_raw);
-  int* start = reinterpret_cast<int*>(smem_raw + acc_bytes<T>(m_block, n));
-  // stage k lives in slot k & 1 (dma) or always slot 0 (grid)
-  unsigned char* const slot0 =
-      smem_raw + acc_bytes<T>(m_block, n) + table_bytes(m_block);
-  const size_t slot_stride =
-      kImpl == kDma ? slot_bytes<T>(stage_rows, n) : 0;
+  constexpr int K = Shape<sizeof(T)>::kCols;
+  constexpr int I = Shape<sizeof(T)>::kItems;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* const landed = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* const full = landed + kMaxSlots;
+  uint64_t* const empty = full + kMaxSlots;
+  unsigned char* const ring = smem_raw + kBarrierBytes;
 
-  const int b = blockIdx.x / n_mblocks;
-  const int m0 = (blockIdx.x - b * n_mblocks) * m_block;
-  const int m_count = min(m_block, out_rows - m0);
+  const int n = geo.n;
+  const int b = blockIdx.x / geo.n_dblocks;
+  const int m0 = (blockIdx.x - b * geo.n_dblocks) * geo.dirs;
+  const int m_count = min(geo.dirs, geo.out_rows - m0);
   const int m_skew = max(0, min(m_count, n - m0));  // rows m < N
-  const int work = m_count * n;
-  const T* gb = g + static_cast<long long>(b) * g_bstride;
-  const bool owns_row_sums = (mode == kForward) && (n >= m0) &&
-                             (n < m0 + m_count);
+  const bool owns_row_sums =
+      (geo.mode == kForward) && (n >= m0) && (n < m0 + m_count);
+  const T* gb = g + static_cast<long long>(b) * geo.g_bstride;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_stages = (geo.rows + geo.stage_rows - 1) / geo.stage_rows;
+  const size_t slot_bytes =
+      static_cast<size_t>(geo.stage_rows) * geo.row_bytes;
 
-  for (int w = threadIdx.x; w < work; w += blockDim.x) acc[w] = U(0);
-
-  const int n_stages = (rows + stage_rows - 1) / stage_rows;
   if constexpr (kImpl == kDma) {
-    const long long cnt = static_cast<long long>(min(stage_rows, rows)) * n;
-    stage_async(stage_dst(slot0, gb), gb, cnt);
-    cp_async_commit();
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < geo.slots; ++s) {
+        mbar_init(&landed[s], 33);  // lane 0's expect_tx + 32 copy arrivals
+        mbar_init(&full[s], 32);   // every producer lane, once padded
+        mbar_init(&empty[s], geo.warps);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (warp == geo.warps) {  // the producer warp: issue stage k, pad k - 1
+      for (int k = 0; k <= n_stages; ++k) {
+        if (k < n_stages) {
+          const int s = k % geo.slots;
+          if (k >= geo.slots) mbar_wait(&empty[s], ((k / geo.slots) - 1) & 1);
+          const int t0 = k * geo.stage_rows;
+          issue_stage(ring + s * slot_bytes,
+                      gb + static_cast<long long>(t0) * n,
+                      min(geo.stage_rows, geo.rows - t0), n, geo.row_bytes,
+                      &landed[s], lane);
+        }
+        if (k > 0) {
+          const int j = k - 1;
+          const int s = j % geo.slots;
+          const int t0 = j * geo.stage_rows;
+          mbar_wait(&landed[s], (j / geo.slots) & 1);
+          pad_rows(ring + s * slot_bytes, gb + static_cast<long long>(t0) * n,
+                   min(geo.stage_rows, geo.rows - t0), n, geo.row_bytes,
+                   geo.pad, lane, 32);
+          fence_proxy_async();  // before a later bulk copy refills the slot
+          mbar_arrive(&full[s]);
+        }
+      }
+      return;
+    }
   }
-  for (int k = 0; k < n_stages; ++k) {
-    const int t0 = k * stage_rows;
-    const int ht = min(stage_rows, rows - t0);
-    const T* src = gb + static_cast<long long>(t0) * n;
-    const T* tile = stage_dst(slot0 + (k & 1) * slot_stride, src);
-    if constexpr (kImpl == kDma) {
-      if (k + 1 < n_stages) {  // prefetch stage k+1 into the other slot
-        const int t1 = t0 + stage_rows;
-        const T* nsrc = gb + static_cast<long long>(t1) * n;
-        stage_async(stage_dst(slot0 + ((k + 1) & 1) * slot_stride, nsrc),
-                    nsrc,
-                    static_cast<long long>(min(stage_rows, rows - t1)) * n);
-        cp_async_commit();
-        cp_async_wait<1>();  // stage k has landed
-      } else {
-        cp_async_wait<0>();
-      }
-    } else {
-      T* dst = stage_dst(slot0, src);
-      const long long cnt = static_cast<long long>(ht) * n;
-      for (long long e = threadIdx.x; e < cnt; e += blockDim.x) dst[e] = src[e];
-    }
-    // start index of each direction at this stage's first global row
-    const int r0 = (off_mod + t0) % n;
-    for (int ml = threadIdx.x; ml < m_skew; ml += blockDim.x) {
-      const int m = m0 + ml;
-      const int step = (sign > 0 || m == 0) ? m : n - m;  // <sign*m>_N
-      start[ml] = static_cast<int>((static_cast<long long>(step) * r0) % n);
-    }
-    __syncthreads();  // the stage and the table are visible to every thread
 
-    const int skew_work = m_skew * n;
-    int ml = threadIdx.x / n;
-    int d = threadIdx.x - ml * n;
-    for (int w = threadIdx.x; w < skew_work; w += blockDim.x) {
-      const int m = m0 + ml;
-      // <sign*m>_N without a modulus: this runs once per output per stage
-      const int step = (sign > 0 || m == 0) ? m : n - m;
-      int idx = d + start[ml];
-      if (idx >= n) idx -= n;
-      U s = U(0);
-      const T* row = tile;
-      for (int i = 0; i < ht; ++i, row += n) {
-        s += static_cast<U>(row[idx]);
-        idx += step;
-        if (idx >= n) idx -= n;
-      }
-      acc[w] += s;
-      d += blockDim.x;
-      while (d >= n) {
-        d -= n;
-        ++ml;
-      }
+  // this warp's items: (direction m, column run c), consecutive in the
+  // block; items past the block's last one are dead: step 0 and window 0,
+  // so the loop reads inside the row for them and nothing is stored
+  const int q0 = warp * I;
+  const int live = max(0, min(I, m_skew * geo.runs - q0));
+  U acc[I][K];
+  int w[I];
+  int step[I];
+#pragma unroll
+  for (int u = 0; u < I; ++u) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[u][j] = U(0);
+    const int q = q0 + u;
+    const int m = m0 + q / geo.runs;
+    const int c = q - (q / geo.runs) * geo.runs;
+    // <sign*m>_N, and the window at row_offset: <32K*c + step*off>_N; a
+    // direction fits one block, so N < 2^16 and the products fit 32 bits
+    const unsigned st =
+        u < live ? static_cast<unsigned>((geo.sign > 0 || m == 0) ? m : n - m)
+                 : 0u;
+    step[u] = static_cast<int>(st);
+    w[u] = static_cast<int>((static_cast<unsigned>(c * 32 * K) % n +
+                             st * static_cast<unsigned>(geo.off_mod) % n) %
+                            n) *
+           (u < live);
+  }
+
+  for (int k = 0; k < n_stages; ++k) {
+    const int s = kImpl == kDma ? k % geo.slots : 0;
+    const int t0 = k * geo.stage_rows;
+    const int ht = min(geo.stage_rows, geo.rows - t0);
+    const T* src = gb + static_cast<long long>(t0) * n;
+    unsigned char* const slot = ring + s * slot_bytes;
+    if constexpr (kImpl == kDma) {
+      mbar_wait(&full[s], (k / geo.slots) & 1);
+    } else {
+      load_stage(slot, src, ht, n, geo.row_bytes, geo.pad);
+      __syncthreads();
+    }
+    if (live > 0) {
+      sum_stage<T>(acc, w, step, slot, src, ht, n, geo.row_bytes, lane);
     }
     if (owns_row_sums) {  // row N: one warp per staged row
-      const int warp = threadIdx.x >> 5;
-      const int lane = threadIdx.x & 31;
-      for (int r = warp; r < ht; r += blockDim.x >> 5) {
-        const long long col = row_offset + t0 + r;
+      for (int i = warp; i < ht; i += geo.warps) {
+        const long long col = geo.row_offset + t0 + i;
         if (col < 0 || col >= n) continue;  // the whole warp skips
-        U s = U(0);
-        const T* row = tile + static_cast<long long>(r) * n;
-        for (int j = lane; j < n; j += 32) s += static_cast<U>(row[j]);
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-        if (lane == 0) acc[static_cast<long long>(n - m0) * n + col] += s;
+        const T* row = reinterpret_cast<const T*>(
+            slot + static_cast<size_t>(i) * geo.row_bytes +
+            (reinterpret_cast<uintptr_t>(src + static_cast<long long>(i) * n) &
+             15));
+        U sum = U(0);
+        for (int x = lane; x < n; x += 32) sum += static_cast<U>(row[x]);
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_down_sync(0xffffffffu, sum, o);
+        if (lane == 0) {
+          out[(static_cast<long long>(b) * geo.out_rows + n) * n + col] =
+              static_cast<T>(sum);
+        }
       }
     }
-    __syncthreads();  // every thread is done with this slot and the table
+    if constexpr (kImpl == kDma) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    } else {
+      __syncthreads();
+    }
   }
 
-  // the output, written once
-  T* ob = out + (static_cast<long long>(b) * out_rows + m0) * n;
-  for (int w = threadIdx.x; w < work; w += blockDim.x) {
-    const U v = acc[w];
-    if (mode == kInverse) {
-      const int m = m0 + w / n;
-      ob[w] = divide_by_n(
-          static_cast<T>(v + static_cast<U>(
-                                 corr[static_cast<long long>(b) * n + m])),
-          n);
-    } else {
-      ob[w] = static_cast<T>(v);
+  // the outputs, written once
+  T* const ob = out + static_cast<long long>(b) * geo.out_rows * n;
+#pragma unroll
+  for (int u = 0; u < I; ++u) {
+    if (u < live) {
+      const int q = q0 + u;
+      const int m = m0 + q / geo.runs;
+      const int c = q - (q / geo.runs) * geo.runs;
+      const U cm = geo.mode == kInverse
+                       ? static_cast<U>(corr[static_cast<long long>(b) * n + m])
+                       : U(0);
+      T* const orow = ob + static_cast<long long>(m) * n;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int d = c * 32 * K + lane + 32 * j;
+        if (d < n) {
+          orow[d] = geo.mode == kInverse
+                        ? divide_by_n(static_cast<T>(acc[u][j] + cm), n)
+                        : static_cast<T>(acc[u][j]);
+        }
+      }
+    }
+  }
+  if (owns_row_sums) {  // row N's columns that no image row reaches
+    T* const orow = ob + static_cast<long long>(n) * n;
+    for (int col = threadIdx.x; col < n; col += geo.warps * 32) {
+      const long long t = col - geo.row_offset;
+      if (t < 0 || t >= geo.rows) orow[col] = T(0);
     }
   }
 }
 
 template <typename T, int kImpl>
-int launch(const void* g, long long g_bstride, const void* corr, void* out,
-           int batch, int rows, int n, int out_rows, int m_block,
-           int stage_rows, int sign, int mode, long long row_offset,
-           cudaStream_t stream) {
-  const int n_mblocks = (out_rows + m_block - 1) / m_block;
-  const long long blocks = static_cast<long long>(batch) * n_mblocks;
+int launch(const void* g, const void* corr, void* out, int batch,
+           Geometry geo, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = acc_bytes<T>(m_block, n) + table_bytes(m_block) +
-                      (kImpl == kDma ? 2 : 1) * slot_bytes<T>(stage_rows, n);
+  const size_t smem = kBarrierBytes + static_cast<size_t>(geo.slots) *
+                                          geo.stage_rows * geo.row_bytes;
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -319,60 +605,100 @@ int launch(const void* g, long long g_bstride, const void* corr, void* out,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int off_mod = static_cast<int>(((row_offset % n) + n) % n);
+  const int threads = (geo.warps + (kImpl == kDma ? 1 : 0)) * 32;
   stream_kernel<T, kImpl>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          static_cast<const T*>(g), g_bstride, static_cast<const T*>(corr),
-          static_cast<T*>(out), rows, n, out_rows, m_block, n_mblocks,
-          stage_rows, sign, mode, off_mod, row_offset);
+      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+          static_cast<const T*>(g), static_cast<const T*>(corr),
+          static_cast<T*>(out), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Fill in what follows from the host's choice and check it against this
+// instantiation's Shape and the budgets.
 template <typename T>
-int launch_impl(int impl, const void* g, long long g_bstride,
-                const void* corr, void* out, int batch, int rows, int n,
-                int out_rows, int m_block, int stage_rows, int sign, int mode,
-                long long row_offset, cudaStream_t s) {
-  if (impl == kGrid) {
-    return launch<T, kGrid>(g, g_bstride, corr, out, batch, rows, n,
-                            out_rows, m_block, stage_rows, sign, mode,
-                            row_offset, s);
+int launch_checked(int impl, const void* g, long long g_bstride,
+                   const void* corr, void* out, int batch, int rows, int n,
+                   int out_rows, int dirs, int warps, int cols, int items,
+                   int stage_rows, int slots, int sign, int mode,
+                   long long row_offset, cudaStream_t s) {
+  constexpr int K = Shape<sizeof(T)>::kCols;
+  constexpr int I = Shape<sizeof(T)>::kItems;
+  Geometry geo;
+  geo.g_bstride = g_bstride;
+  geo.row_offset = row_offset;
+  geo.rows = rows;
+  geo.n = n;
+  geo.out_rows = out_rows;
+  geo.dirs = dirs;
+  geo.n_dblocks = (out_rows + dirs - 1) / dirs;
+  geo.runs = (n + 32 * K - 1) / (32 * K);
+  geo.warps = warps;
+  geo.stage_rows = stage_rows;
+  geo.slots = slots;
+  geo.pad = 32 * K - 1;
+  geo.row_bytes = static_cast<int>(
+      align16(static_cast<size_t>(n + geo.pad) * sizeof(T)) + 16);
+  geo.sign = sign;
+  geo.mode = mode;
+  geo.off_mod = static_cast<int>(((row_offset % n) + n) % n);
+  if (cols != K || items != I ||
+      warps > (impl == kDma ? kWarps<kDma> : kWarps<kGrid>) ||
+      static_cast<long long>(warps) * I <
+          static_cast<long long>(dirs) * geo.runs ||
+      slots > kMaxSlots || (impl == kGrid && slots != 1) ||
+      (impl == kDma && slots < 2 && rows > stage_rows)) {
+    // K5's producer pads stage k - 1 after issuing stage k, so a ring of
+    // one slot holds one stage only
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<T, kDma>(g, g_bstride, corr, out, batch, rows, n, out_rows,
-                         m_block, stage_rows, sign, mode, row_offset, s);
+  if (impl == kGrid) {
+    return launch<T, kGrid>(g, corr, out, batch, geo, s);
+  }
+  return launch<T, kDma>(g, corr, out, batch, geo, s);
 }
 
 }  // namespace
 
 // dtype: 0 int32, 1 int64, 2 float32, 3 float64; impl: 0 grid (K4), 1 dma
-// (K5).  Returns a cudaError_t (0 on success); the launch is asynchronous
-// on `stream`.
+// (K5); dirs, warps, cols, items, stage_rows, slots: the tile of
+// kernels/tuning.py:stream_tile.  Returns a cudaError_t (0 on success); the
+// launch is asynchronous on `stream`.
 extern "C" int stream_launch(int impl, int dtype, const void* g,
                              long long g_bstride, const void* corr, void* out,
                              int batch, int rows, int n, int out_rows,
-                             int m_block, int stage_rows, int sign, int mode,
+                             int dirs, int warps, int cols, int items,
+                             int stage_rows, int slots, int sign, int mode,
                              long long row_offset, void* stream) {
-  if (batch < 1 || rows < 1 || n < 1 || m_block < 1 || stage_rows < 1 ||
-      (impl != kGrid && impl != kDma) || (sign != 1 && sign != -1) ||
-      mode < kCore || mode > kInverse ||
+  if (batch < 1 || rows < 1 || n < 1 || dirs < 1 || warps < 1 ||
+      stage_rows < 1 || slots < 1 || (impl != kGrid && impl != kDma) ||
+      (sign != 1 && sign != -1) || mode < kCore || mode > kInverse ||
       (mode == kInverse && corr == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_impl<int32_t>(impl, g, g_bstride, corr, out, batch,
-                                        rows, n, out_rows, m_block,
-                                        stage_rows, sign, mode, row_offset, s);
-    case 1: return launch_impl<int64_t>(impl, g, g_bstride, corr, out, batch,
-                                        rows, n, out_rows, m_block,
-                                        stage_rows, sign, mode, row_offset, s);
-    case 2: return launch_impl<float>(impl, g, g_bstride, corr, out, batch,
-                                      rows, n, out_rows, m_block, stage_rows,
-                                      sign, mode, row_offset, s);
-    case 3: return launch_impl<double>(impl, g, g_bstride, corr, out, batch,
-                                       rows, n, out_rows, m_block, stage_rows,
-                                       sign, mode, row_offset, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0:
+      return launch_checked<int32_t>(impl, g, g_bstride, corr, out, batch,
+                                     rows, n, out_rows, dirs, warps, cols,
+                                     items, stage_rows, slots, sign, mode,
+                                     row_offset, s);
+    case 1:
+      return launch_checked<int64_t>(impl, g, g_bstride, corr, out, batch,
+                                     rows, n, out_rows, dirs, warps, cols,
+                                     items, stage_rows, slots, sign, mode,
+                                     row_offset, s);
+    case 2:
+      return launch_checked<float>(impl, g, g_bstride, corr, out, batch, rows,
+                                   n, out_rows, dirs, warps, cols, items,
+                                   stage_rows, slots, sign, mode, row_offset,
+                                   s);
+    case 3:
+      return launch_checked<double>(impl, g, g_bstride, corr, out, batch,
+                                    rows, n, out_rows, dirs, warps, cols,
+                                    items, stage_rows, slots, sign, mode,
+                                    row_offset, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -5,23 +5,29 @@ kernel template (``csrc/stream.cu``, CUDA C++ for ``sm_90a``) replaces
 both TPU kernels of the giant-N path, in K1's three modes:
 
 * ``stream_impl="grid"`` -- ``repro/kernels/sfdprt.py:_stream_grid_kernel``
-  (K4): each stage of rows is loaded synchronously, then summed;
+  (K4): each stage of rows is loaded by the whole block, waited for, and
+  only then summed;
 * ``stream_impl="dma"`` -- ``_stream_dma_kernel`` (K5), the default as it
-  is the reference's compiled default: the next stage is copied with
-  ``cp.async`` while the current one is summed.
+  is the reference's compiled default: one producer warp keeps a ring of
+  stages filling (``cp.async.bulk`` for each row's aligned interior,
+  ``cp.async`` for its ends, its wrap padding copied in shared memory,
+  ``mbarrier`` signals) while the consumer warps sum the stages that have
+  landed.
 
 Either way one launch streams the whole ``(B, rows, N)`` operand, keeps
-the partial sums in shared memory for the whole strip loop and writes
-the output once.  :func:`stream_raw` is the wrapper: on a CUDA tensor it
-launches the kernel or raises (no fallback to K1 or to the plain
-version); on a CPU tensor it runs :func:`stream_plain`, the same function
-in plain PyTorch in the streamed structure, which is also what
-``chip_smoke.py`` holds the kernel against on the card.
+the partial sums in registers for the whole strip loop (each lane holds
+a few columns of a few directions) and writes the output once.
+:func:`stream_raw` is the wrapper: on a CUDA tensor it launches the
+kernel or raises (no fallback to K1 or to the plain version); on a CPU
+tensor it runs :func:`stream_plain`, the same function in plain PyTorch
+in the streamed structure, which is also what ``chip_smoke.py`` holds
+the kernel against on the card.
 
 ``stream_rows`` is the reference's strip height H.  On Hopper it caps
-the rows of one shared-memory stage (:func:`.tuning.stream_tile`: at
-N = 4099 int32 a stage holds 3 rows); ``m_block`` is capped the same
-way.  Neither changes an integer result.
+the rows of one shared-memory stage and ``m_block`` caps the directions
+of one block (:func:`.tuning.stream_tile`: at N = 4099 int32, K5 runs 9
+directions per block in 15 consumer warps and a ring of three 4-row
+stages).  Neither changes an integer result.
 """
 from __future__ import annotations
 
@@ -31,10 +37,11 @@ import functools
 import torch
 
 from . import _build
-from .tuning import stream_tile
+from .tuning import StreamTile, stream_tile
 
-__all__ = ["stream_raw", "stream_plain", "STREAM_IMPLS", "LAUNCHES",
-           "IMPL_MODE_LAUNCHES", "reset_launch_counts"]
+__all__ = ["stream_raw", "stream_launch_tile", "stream_plain",
+           "STREAM_IMPLS", "LAUNCHES", "IMPL_MODE_LAUNCHES",
+           "reset_launch_counts"]
 
 STREAM_IMPLS = ("grid", "dma")
 
@@ -77,11 +84,18 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stream")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.stream_launch.argtypes = [i32, i32, vp, i64, vp, vp, i32, i32, i32,
-                                  i32, i32, i32, i32, i32, i64, vp]
+                                  i32, i32, i32, i32, i32, i32, i32, i32,
+                                  i32, i64, vp]
     lib.stream_launch.restype = i32
     lib.stream_error_string.argtypes = [i32]
     lib.stream_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """SMs of CUDA device ``index``, the wave width of the tile choice."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
@@ -126,7 +140,6 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
     the default) once on the current stream, raising if the launch is
     refused; a CPU operand takes :func:`stream_plain`.
     """
-    global LAUNCHES
     impl = resolve_impl(stream_impl)
     _check(g, sign, mode, corr, stream_rows, m_block)
     if g.device.type == "cpu":
@@ -138,23 +151,46 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                            f"{g.device}")
     b, rows, n = g.shape
     out_rows = n + 1 if mode == "forward" else n
+    tile = stream_tile(n, rows, g.element_size(), stream_rows, m_block,
+                       out_rows, impl, batch=max(1, b),
+                       sms=_sms(g.device.index or 0))
+    return stream_launch_tile(g, tile, sign=sign, mode=mode, corr=corr,
+                              row_offset=row_offset, stream_impl=impl)
+
+
+def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
+                       mode: str, corr: torch.Tensor | None = None,
+                       row_offset: int = 0,
+                       stream_impl: str | None = None) -> torch.Tensor:
+    """Launch the streamed kernel over the CUDA operand ``g`` with an
+    explicit ``tile`` (:func:`stream_raw` passes
+    :func:`.tuning.stream_tile`'s; ``chip_smoke.py`` times others).  The
+    kernel checks the tile against its own constants and budgets and
+    the launch raises if it is refused."""
+    global LAUNCHES
+    impl = resolve_impl(stream_impl)
+    _check(g, sign, mode, corr, tile.stage_rows, tile.m_block)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"the streamed kernel launches on CUDA tensors, "
+                           f"not {g.device}")
+    b, rows, n = g.shape
+    out_rows = n + 1 if mode == "forward" else n
     out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
     if b == 0:
         return out
-    stage, mb = stream_tile(n, rows, g.element_size(), stream_rows,
-                            m_block, out_rows, impl)
     lib = _lib()
     cuda_stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.stream_launch(
         _IMPLS[impl], _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
         None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
-        n, out_rows, mb, stage, int(sign), _MODES[mode], int(row_offset),
-        cuda_stream)
+        n, out_rows, tile.m_block, tile.warps, tile.cols, tile.items,
+        tile.stage_rows, tile.slots, int(sign), _MODES[mode],
+        int(row_offset), cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"streamed kernel launch failed ({impl}, {mode}, B={b}, "
-            f"rows={rows}, N={n}, stream_rows={stream_rows}, stage_rows="
-            f"{stage}, m_block={mb}): {lib.stream_error_string(err).decode()}")
+            f"rows={rows}, N={n}, {tile}): "
+            f"{lib.stream_error_string(err).decode()}")
     LAUNCHES += 1
     IMPL_MODE_LAUNCHES[(impl, mode)] += 1
     return out

@@ -16,20 +16,22 @@ pipeline's ``group`` (the TPU kernel's conv tap group) changes nothing
 on Hopper.  Rows measured on the card replace these in a later change.
 
 :func:`stream_tile` is the Hopper resolution of the streamed kernel's
-tile (K4/K5): how many directions' partial sums a block keeps in shared
-memory and how many rows one of its stages holds.  ``stream_rows`` caps
-the stage height there, it does not set it, and a plan reports the knob
-unchanged.
+tile (K4/K5): how many directions' partial sums a block keeps in
+registers, how its warps split them, and how many rows each stage of
+its shared-memory ring holds.  ``stream_rows`` caps the stage height
+there, it does not set it, and a plan reports the knob unchanged.
 """
 from __future__ import annotations
 
 import math
 import warnings
+from typing import NamedTuple
 
 __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "wasted_direction_rows", "PIPELINE_TUNE", "pipeline_block_spec",
-           "resolve_pipeline_blocks", "check_strip_knobs", "STREAM_SMEM_BUDGET", "stream_smem",
-           "stream_tile"]
+           "resolve_pipeline_blocks", "check_strip_knobs",
+           "STREAM_SMEM_BUDGET", "STREAM_SHAPES", "STREAM_WARPS",
+           "StreamTile", "stream_row_bytes", "stream_smem", "stream_tile"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
@@ -124,53 +126,124 @@ def resolve_blocks(n: int, itemsize: int = 4,
 #: shared memory one streamed block may use: the H100's opt-in maximum
 #: per block (227 KB), so one block runs per SM at giant N
 STREAM_SMEM_BUDGET = 227 * 1024
+#: the streamed kernel's register tile per accumulator width in bytes
+#: (``csrc/stream.cu: Shape``): (columns a lane holds per item, items a
+#: warp holds).  Lane L of an item's warp owns the outputs d = 32*cols*c
+#: + L + 32*j, j < cols, of one direction m and column run c.
+STREAM_SHAPES = {4: (13, 6), 8: (7, 6)}
+#: consumer warps per streamed block at most, by ``stream_impl``: K5's 15
+#: and its producer warp leave ptxas 128 registers a thread (a 17th warp
+#: spills); K4, whose consumers also copy the stages, spills at 14 and
+#: 15 warps too and takes 12 (``csrc/stream.cu: kWarps``)
+STREAM_WARPS = {"dma": 15, "grid": 12}
+#: stages in K5's ring: at most (mbarrier pairs in shared memory) and the
+#: depth the stage height is chosen for
+STREAM_MAX_SLOTS = 8
+STREAM_TARGET_SLOTS = 3
+#: the mbarriers at the head of the block's shared memory (landed, full,
+#: empty per slot)
+STREAM_BARRIER_BYTES = 3 * STREAM_MAX_SLOTS * 8
+#: SMs of an H100 SXM, the default wave width of the direction choice
+H100_SMS = 132
+#: what streaming the rows costs a block beside its directions, in units
+#: of one direction: a K5 block at N = 4099 took about 2.16 + 0.093*D ms
+#: (``chip_smoke.py``'s sweep of D, NVIDIA H100 80GB HBM3, 700 W)
+STREAM_BLOCK_COST = 23
 
 
 def _align16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def stream_smem(n: int, itemsize: int, m_block: int, stage_rows: int,
-                stream_impl: str = "dma") -> int:
+class StreamTile(NamedTuple):
+    """The launch geometry of the streamed kernel (``csrc/stream.cu``)."""
+    stage_rows: int     # rows per shared-memory stage (<= stream_rows)
+    slots: int          # stages in the ring (K5) or 1 (K4)
+    m_block: int        # D: directions per block (<= m_block)
+    cols: int           # columns a lane holds per item
+    items: int          # items a consumer warp holds
+    warps: int          # consumer warps per block
+    runs: int           # column runs of 32*cols per direction
+    pad: int            # padding columns after each staged row
+    row_bytes: int      # bytes of one padded row slot (16-multiple)
+    smem: int           # dynamic shared memory of one block
+    blocks: int         # blocks per image
+
+
+def stream_row_bytes(n: int, itemsize: int) -> int:
+    """Bytes of one staged row's slot: the row, its padding of
+    ``32*cols - 1`` columns, and up to 15 bytes of lead that puts it at
+    its source's address mod 16."""
+    cols, _ = STREAM_SHAPES[itemsize]
+    return _align16((n + 32 * cols - 1) * itemsize) + 16
+
+
+def stream_smem(n: int, itemsize: int, stage_rows: int, slots: int) -> int:
     """Bytes of shared memory a streamed block takes (the layout of
-    ``csrc/stream.cu``): ``m_block`` rows of accumulators, a start-index
-    table, and two stages of ``stage_rows`` rows for ``dma`` (one for
-    ``grid``), each with 16 bytes of slack."""
-    slots = 2 if stream_impl == "dma" else 1
-    return (_align16(m_block * n * itemsize) + _align16(4 * m_block)
-            + slots * _align16(stage_rows * n * itemsize + 16))
+    ``csrc/stream.cu``): the ring's mbarriers, then ``slots`` stages of
+    ``stage_rows`` padded row slots."""
+    return (STREAM_BARRIER_BYTES
+            + slots * stage_rows * stream_row_bytes(n, itemsize))
+
+
+def _direction_block(dmax: int, out_rows: int, batch: int, sms: int) -> int:
+    """The directions per block in [ceil(3*dmax/4), dmax] that finish the
+    blocks in the least time, as waves of ``sms`` blocks that each cost
+    :data:`STREAM_BLOCK_COST` plus one per direction; the larger on a
+    tie."""
+    best, best_cost = dmax, None
+    for d in range(dmax, max(1, -(-3 * dmax // 4)) - 1, -1):
+        waves = -(-batch * -(-out_rows // d) // sms)
+        cost = waves * (STREAM_BLOCK_COST + d)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = d, cost
+    return best
 
 
 def stream_tile(n: int, rows: int, itemsize: int, stream_rows: int,
-                m_block: int, out_rows: int,
-                stream_impl: str = "dma") -> tuple[int, int]:
-    """(stage_rows, m_block) the streamed kernel runs with.
+                m_block: int, out_rows: int, stream_impl: str = "dma",
+                batch: int = 1, sms: int = H100_SMS) -> StreamTile:
+    """The geometry the streamed kernel runs with (:class:`StreamTile`).
 
-    The block's accumulators take at most half of
-    :data:`STREAM_SMEM_BUDGET` (at least one direction), capped by
-    ``m_block`` and the output rows; the stages take the rest, capped by
-    ``stream_rows`` and ``rows``.  Raises ValueError when not one
-    direction and one row fit.  Integer results depend on neither.
+    Registers set the directions per block D: a block of at most
+    :data:`STREAM_WARPS` consumer warps holds that many times ``items``
+    items of ``32 * cols`` columns, so ``floor(that / runs)`` directions,
+    capped by ``m_block`` and the output rows, and lowered by at most a
+    quarter where that fills the waves of ``sms`` SMs better for
+    ``batch`` images (:func:`_direction_block`).  Shared memory holds only stages: the stage height
+    is the rows that let :data:`STREAM_TARGET_SLOTS` stages fit (K5; K4
+    has one stage of all that fit), capped by ``stream_rows`` and
+    ``rows``, and K5's ring takes as many such stages as fit, up to
+    :data:`STREAM_MAX_SLOTS` and the stage count.  Raises ValueError
+    when not one direction fits the registers of a block or not one
+    padded row its shared memory.  Integer results depend on none of it.
     """
-    row = n * itemsize
-    mb = max(1, min(int(m_block), int(out_rows),
-                    (STREAM_SMEM_BUDGET // 2) // row))
-    fixed = stream_smem(n, itemsize, mb, 0, stream_impl)
-    slots = 2 if stream_impl == "dma" else 1
-    fit = ((STREAM_SMEM_BUDGET - fixed) // slots) // row
-    if fit < 1:
+    cols, items = STREAM_SHAPES[itemsize]
+    max_warps = STREAM_WARPS[stream_impl]
+    runs = -(-n // (32 * cols))
+    row = stream_row_bytes(n, itemsize)
+    fit = (STREAM_SMEM_BUDGET - STREAM_BARRIER_BYTES) // row
+    if runs > max_warps * items or fit < 1:
         raise ValueError(
-            f"the streamed kernel cannot hold one direction and one row of "
-            f"N={n} {itemsize}-byte values in its {STREAM_SMEM_BUDGET}-byte "
-            f"shared-memory budget")
-    h = max(1, min(int(stream_rows), int(rows), fit))
-    while stream_smem(n, itemsize, mb, h, stream_impl) > STREAM_SMEM_BUDGET:
-        h -= 1                  # the 16-byte alignment of the last stage
-    if h < 1:
-        raise ValueError(
-            f"the streamed kernel cannot hold one row of N={n} "
-            f"{itemsize}-byte values beside its accumulators")
-    return h, mb
+            f"the streamed kernel cannot hold one direction of N={n} "
+            f"{itemsize}-byte sums in the registers of one block "
+            f"({max_warps} warps x {items} items x {32 * cols} columns) "
+            f"and one padded row in its {STREAM_SMEM_BUDGET}-byte shared "
+            f"memory")
+    cap = max(1, min(int(stream_rows), int(rows)))
+    if stream_impl == "dma":
+        h = min(cap, max(1, fit // STREAM_TARGET_SLOTS))
+        slots = min(STREAM_MAX_SLOTS, fit // h, -(-int(rows) // h))
+    else:
+        h, slots = min(cap, fit), 1
+    dmax = max(1, min(int(m_block), int(out_rows),
+                      max_warps * items // runs))
+    d = _direction_block(dmax, int(out_rows), int(batch), int(sms))
+    return StreamTile(stage_rows=h, slots=slots, m_block=d, cols=cols,
+                      items=items, warps=-(-d * runs // items), runs=runs,
+                      pad=32 * cols - 1, row_bytes=row,
+                      smem=stream_smem(n, itemsize, h, slots),
+                      blocks=-(-int(out_rows) // d))
 
 
 def wasted_direction_rows(n: int, m_block: int, forward: bool = True) -> int:

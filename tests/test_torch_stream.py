@@ -143,21 +143,121 @@ def test_stream_impl_is_validated():
 
 
 # ---------------------------------------------------------------------------
-# the Hopper tile: stream_rows caps the stage, shared memory stays bounded
+# the Hopper tile: sums in registers, shared memory for stages only
 # ---------------------------------------------------------------------------
+def _block_map(n, tile, out_rows, block):
+    """The outputs the lanes of block ``block`` of an image hold, as in
+    ``csrc/stream.cu``: the block owns directions ``[block*D,
+    (block+1)*D)``; its item ``q = warp*items + item`` is direction
+    ``block*D + q // runs`` (m < N; row N is no item) and column run
+    ``c = q % runs``, and lane L holds columns ``32*cols*c + L + 32*j``,
+    j < cols, below N.  Returns arrays (warp, item, lane, j, m, d)."""
+    m0 = block * tile.m_block
+    m_skew = max(0, min(tile.m_block, out_rows - m0, n - m0))
+    warp, item, lane, j = np.meshgrid(
+        np.arange(tile.warps), np.arange(tile.items), np.arange(32),
+        np.arange(tile.cols), indexing="ij")
+    q = warp * tile.items + item
+    m = m0 + q // tile.runs
+    d = 32 * tile.cols * (q % tile.runs) + lane + 32 * j
+    keep = (q < m_skew * tile.runs) & (d < n)
+    return tuple(a[keep] for a in (warp, item, lane, j, m, d))
+
+
+def _window(n, tile, m, d, sign, row):
+    """The padded-row column the lane holding output (m, d) loads at
+    global image row ``row``: its item's window base, which the kernel
+    steps by ``<sign*m>_N`` per row from ``<32*cols*c>_N`` and wraps by
+    subtracting N, plus ``d - 32*cols*c``.  Column x of a padded row is
+    image column ``x mod N``."""
+    c = d // (32 * tile.cols)
+    step = m if sign > 0 or m == 0 else n - m
+    w = (32 * tile.cols * c) % n
+    for _ in range(row):
+        w = w + step - n if w + step >= n else w + step
+    return w + d - 32 * tile.cols * c
+
+
 @pytest.mark.parametrize("n,itemsize,impl,want", [
-    (4099, 4, "dma", (3, 7)), (4099, 8, "dma", (2, 3)),
-    (4099, 4, "grid", (7, 7)), (2053, 4, "dma", (7, 14)),
-    (13, 4, "dma", (5, 8))])
+    (4099, 4, "dma", (4, 3, 9, 15)), (4099, 8, "dma", (2, 3, 4, 13)),
+    (4099, 4, "grid", (12, 1, 7, 12)), (2053, 4, "dma", (7, 3, 16, 14)),
+    (13, 4, "dma", (5, 3, 6, 1))])
 def test_stream_tile_fits_shared_memory(n, itemsize, impl, want):
+    """(stage rows, ring slots, directions per block, consumer warps) of
+    the giant-N shapes (N = 4099 int32 at the serve batch of 4) and a
+    small one.  The block's registers (its accumulators) and shared
+    memory (its stages) stay within one SM's; ``stream_rows`` caps the
+    stage, ``m_block`` the directions; every row slot is a 16-byte
+    multiple that holds the row, its padding and the lead that puts it at
+    its source's address mod 16, so each row's aligned interior moves as
+    one bulk copy whatever the stage height."""
     stream_rows = 5 if n == 13 else 256
-    got = TT.stream_tile(n, n, itemsize, stream_rows, 8 if n == 13 else 64,
-                         n + 1, impl)
-    assert got == want
-    h, mb = got
-    assert TT.stream_smem(n, itemsize, mb, h, impl) <= TT.STREAM_SMEM_BUDGET
-    assert TT.stream_smem(n, itemsize, mb, h + 1, impl) \
-        > TT.STREAM_SMEM_BUDGET or h == min(stream_rows, n)
+    m_block = 8 if n == 13 else 64
+    batch = 4 if (n, itemsize) == (4099, 4) else 1
+    t = TT.stream_tile(n, n, itemsize, stream_rows, m_block, n + 1, impl,
+                       batch=batch)
+    assert (t.stage_rows, t.slots, t.m_block, t.warps) == want
+    # registers: each thread's accumulators (two registers for 8 bytes),
+    # a window base and a step per item, and ~14 more, for every thread
+    # of the block (K5: one producer warp more), within the SM's 65,536
+    regs = t.items * (t.cols * itemsize // 4 + 2) + 14
+    assert 32 * (t.warps + (impl == "dma")) * regs <= 65536
+    assert t.warps <= TT.STREAM_WARPS[impl]
+    assert t.warps * t.items >= t.m_block * t.runs
+    assert t.runs * 32 * t.cols >= n and t.pad == 32 * t.cols - 1
+    assert t.smem == TT.stream_smem(n, itemsize, t.stage_rows, t.slots)
+    assert t.smem <= TT.STREAM_SMEM_BUDGET
+    assert t.stage_rows <= min(stream_rows, n) and t.m_block <= m_block
+    assert t.row_bytes % 16 == 0
+    assert t.row_bytes >= (n + t.pad) * itemsize + 16 - itemsize
+    if impl == "grid":       # one stage of all the rows that fit
+        assert t.slots == 1 and (t.stage_rows == min(stream_rows, n) or
+                                 TT.stream_smem(n, itemsize, t.stage_rows
+                                                + 1, 1)
+                                 > TT.STREAM_SMEM_BUDGET)
+    else:                    # a ring of at least two stages
+        assert t.slots >= min(2, -(-n // t.stage_rows))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [5, 13, 61, 251, 4099])
+def test_stream_thread_map_covers_each_output_once(n, itemsize):
+    """The launcher's tile maps (direction block, warp, item, lane, j)
+    onto every output (m, d), m < N, exactly once, for the forward's N + 1
+    rows (row N is summed apart) and the inverse's N; and each lane's
+    window, stepped along the rows, loads column <d + sign*m*i>_N from
+    inside its padded row.  N = 251 and 4099 are arithmetic only."""
+    m_block = TT.pallas_block_spec(n, itemsize)[1]
+    rng = np.random.default_rng(n * itemsize)
+    for out_rows in (n + 1, n):
+        tile = TT.stream_tile(n, n, itemsize, 256, m_block, out_rows,
+                              batch=4)
+        covered, seen = 0, []
+        for blk in range(tile.blocks):
+            warp, item, lane, j, m, d = _block_map(n, tile, out_rows, blk)
+            m0 = blk * tile.m_block
+            here = max(0, min(tile.m_block, out_rows - m0, n - m0))
+            assert (warp < tile.warps).all() and (item < tile.items).all()
+            assert ((m >= m0) & (m < m0 + here)).all() and (d < n).all()
+            hits = np.bincount((m - m0) * n + d, minlength=here * n)
+            assert hits.size == here * n and (hits == 1).all()
+            covered += here
+            pick = (slice(None) if n <= 61
+                    else rng.choice(len(m), min(len(m), 60), replace=False))
+            seen.append(np.stack([m[pick], d[pick]], 1))
+        assert covered == n
+        outputs = np.concatenate(seen)
+        if n > 61:
+            outputs = outputs[rng.choice(len(outputs), 500, replace=False)]
+            rows = rng.choice(n, 4, replace=False)
+        else:
+            rows = range(n)
+        for m, d in outputs:
+            for i in rows:
+                for sign in (1, -1):
+                    x = _window(n, tile, int(m), int(d), sign, int(i))
+                    assert 0 <= x < n + tile.pad
+                    assert x % n == (d + sign * m * i) % n
 
 
 def test_stream_tile_raises_when_no_row_fits():
