@@ -33,9 +33,12 @@ counts set to 0 just before it and read just after:
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
-instantiation of the streamed kernel, and times every kernel against its
-bound (the streamed kernel also with its design, registers, SASS
-instructions per shared load and a sweep of directions per block).
+instantiation of K1, K2 or the streamed kernel, and times every kernel
+against its bound: K1, K2 and the streamed kernel also with their
+design, registers and SASS instructions per add (K2's conv window: per
+multiply-add); K1 also for one image (``Conv2D``'s kernel) and by
+directions per block, K2 by m_block (ms against blocks per image), the
+streamed kernel by directions per block.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
@@ -150,31 +153,39 @@ def build_phase() -> None:
             log(f"nvcc output for {name}:\n{text}")
 
 
-#: the streamed kernel's instantiations: mangled type code -> dtype name
-_STREAM_TYPES = {"i": "int32", "l": "int64", "f": "float32",
-                 "d": "float64"}
+#: mangled type code -> dtype name, for the kernels' instantiations
+_TYPES = {"i": "int32", "l": "int64", "f": "float32", "d": "float64"}
+_KERNELS = ("stream_kernel", "sfdprt_kernel", "pipeline_kernel",
+            "pipeline_tail_kernel", "pipeline_finish_kernel")
 
 
-def _stream_instance(mangled: str):
-    """(dtype name, impl) of a mangled ``stream_kernel<T, impl>``, else
-    None."""
-    m = re.search(r"stream_kernelI([ilfd])Li(\d)E", mangled)
+def _instance(mangled: str):
+    """(kernel, dtype name, variant) of a mangled kernel instantiation --
+    variant "grid"/"dma" for the streamed kernel, "K=<cols>" for K1 and
+    K2, "" otherwise -- else None."""
+    m = re.search(r"(" + "|".join(_KERNELS) + r")I([ilfd])(?:Li(\d+)E)?",
+                  mangled)
     if m is None:
         return None
-    return _STREAM_TYPES[m.group(1)], ("grid", "dma")[int(m.group(2))]
+    kernel, code, v = m.groups()
+    if kernel == "stream_kernel":
+        variant = ("grid", "dma")[int(v)]
+    else:
+        variant = "" if v is None else f"K={v}"
+    return kernel, _TYPES[code], variant
 
 
-def ptxas_stream_report() -> dict:
-    """ptxas's registers and spill bytes per streamed-kernel instantiation,
-    from this run's build log: {(dtype, impl): {"regs", "spill_stores",
-    "spill_loads"}}."""
+def ptxas_report(library: str) -> dict:
+    """ptxas's registers and spill bytes per kernel instantiation of
+    ``library``, from this run's build log: {(kernel, dtype, variant):
+    {"regs", "spill_stores", "spill_loads"}}."""
     from repro_torch.kernels import _build
     report, current = {}, None
-    for line in _build.build_log("stream").splitlines():
+    for line in _build.build_log(library).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w]+)", line)
         if m:
-            current = _stream_instance(m.group(1))
+            current = _instance(m.group(1))
             continue
         if current is None:
             continue
@@ -190,13 +201,32 @@ def ptxas_stream_report() -> dict:
     return report
 
 
+def check_no_spills(library: str) -> dict:
+    """ptxas_report(library), failing the run if any instantiation of the
+    library spills registers."""
+    report = ptxas_report(library)
+    if not report:
+        fail(f"no ptxas report in the build log of {library}")
+    spills = {key: v for key, v in report.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        fail(f"ptxas spills registers in {library}: {spills}")
+    return report
+
+
+#: SASS mnemonics of one multiply-add of the conv window (32-bit types)
+_MAD_OPS = ("IMAD", "FFMA", "DFMA")
+
+
 def sass_hot_blocks(lib_path) -> dict:
-    """For each streamed-kernel instantiation in the library at
-    ``lib_path`` (``cuobjdump -sass``), the basic block with the most
-    shared-memory loads: its instructions, its LDS count and
-    instructions per LDS (each LDS feeds one add, so this is the inner
-    loop's instructions per add).  Blocks split at labels and after
-    branches."""
+    """For each kernel instantiation in the library at ``lib_path``
+    (``cuobjdump -sass``), the basic block with the most shared-memory
+    loads: its instructions, its LDS count and instructions per LDS (each
+    LDS of a skew-sum's inner loop feeds one add, so this is the loop's
+    instructions per add); and, where a block does multiply-adds, the one
+    with the most (``mad_block``, K2 only: instructions per multiply-add
+    of its conv window, counted as plain IMAD/FFMA/DFMA, so meaningful for
+    the 32-bit types).  Blocks split at labels and after branches."""
     import os
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run(
@@ -205,24 +235,33 @@ def sass_hot_blocks(lib_path) -> dict:
         check=True).stdout
     out, name, blocks = {}, None, []
 
+    def fresh():
+        return {"instructions": 0, "lds": 0, "mads": 0}
+
     def close():
-        if name is not None and blocks:
-            best = max(blocks, key=lambda blk: blk["lds"])
-            if best["lds"]:
-                best = dict(best, per_lds=best["instructions"] / best["lds"])
-            out[name] = best
+        if name is None or not blocks:
+            return
+        best = max(blocks, key=lambda blk: blk["lds"])
+        entry = {"instructions": best["instructions"], "lds": best["lds"]}
+        if best["lds"]:
+            entry["per_lds"] = best["instructions"] / best["lds"]
+        mad = max(blocks, key=lambda blk: blk["mads"])
+        if mad["mads"] and name[0] == "pipeline_kernel":
+            entry["mad_block"] = {
+                "instructions": mad["instructions"], "mads": mad["mads"],
+                "per_mad": mad["instructions"] / mad["mads"]}
+        out[name] = entry
 
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             close()
-            name, blocks = _stream_instance(m.group(1)), []
-            blocks.append({"instructions": 0, "lds": 0})
+            name, blocks = _instance(m.group(1)), [fresh()]
             continue
         if name is None:
             continue
         if re.match(r"\s*\.L_\w+:", line):
-            blocks.append({"instructions": 0, "lds": 0})
+            blocks.append(fresh())
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if not m:
@@ -231,22 +270,44 @@ def sass_hot_blocks(lib_path) -> dict:
         blk = blocks[-1]
         blk["instructions"] += 1
         blk["lds"] += op.startswith("LDS")
+        blk["mads"] += op in _MAD_OPS
         if op.split(".")[0] in ("BRA", "EXIT", "RET", "JMP", "BRX"):
-            blocks.append({"instructions": 0, "lds": 0})
+            blocks.append(fresh())
     close()
     return out
+
+
+#: K1 and K2's register tile edges: N with one short column run (31: K =
+#: 1, 61: K = 2; 257: K = 4 in 3 runs and, in K2, two conv runs of 32R),
+#: m_block 1 (the block of row N holds no item) and 5 (row N shares its
+#: block; the last block is short), stage heights that do not divide N
+TILE_EDGE_NS = (31, 61)
+PIPE_EDGE_NS = (31, 61, 257)
+TILE_EDGE_MBLOCKS = (1, 5)
+TILE_EDGE_HEIGHTS = (3, 7)
+#: N past K1's registers, each just above a limit, with the streamed
+#: kernel the raw functions take there: K5 above 14336 (int32) / 7168
+#: (int64), K4 above 28613 / 14291, where K5's ring holds one padded row
+WIDE_ROUTES = (
+    (14341, "int32", "dma"), (7177, "int64", "dma"),
+    (28619, "int32", "grid"), (14293, "int64", "grid"))
 
 
 def kernel_phase() -> dict:
     """K1 against its plain version: every mode, sign +-1, awkward blocks,
     batch 1 and 3, int32/int64 bit-exact, float32/float64 within
-    tolerance, a nonzero row_offset, and the inverse on non-transform
-    inputs with negatives."""
+    tolerance, a nonzero row_offset, the inverse on non-transform inputs
+    with negatives; the register tile's edges (N = 31 and 61, m_block 1
+    and 5, stage heights 3 and 7, unaligned row_offset partials),
+    int32 overflow, and N too wide for K1's block, which the raw
+    functions stream through K5 or K4 (``WIDE_ROUTES``).  Fails if ptxas
+    spilled in any instantiation."""
     import numpy as np
     import torch
     from repro_torch.kernels import sfdprt as S
     from repro_torch.kernels.tuning import pallas_block_spec
 
+    check_no_spills("sfdprt")
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
@@ -293,10 +354,45 @@ def kernel_phase() -> dict:
                             got, want, n)
                         worst[mode] = max(worst.get(mode, 0.0), err)
                         cases += 1
+    for n in TILE_EDGE_NS:                   # the register tile's edges
+        for mb in TILE_EDGE_MBLOCKS:
+            for h in TILE_EDGE_HEIGHTS:
+                for b in (1, 3):
+                    for dt in dtypes:
+                        def make(shape, lo=-200, hi=256):
+                            if dt.is_floating_point:
+                                a = rng.random(shape)
+                            else:
+                                a = rng.integers(lo, hi, shape)
+                            return torch.as_tensor(a).to(dt).to(dev)
+
+                        g = make((b, n, n))
+                        # (N - 2)*N batch stride: image b at an unaligned
+                        # address for b > 0
+                        part = make((b, n - 2, n))
+                        corr = make((b, n), -5000, 5000)
+                        for label, x, kw in (
+                                ("core+off", part, dict(sign=1, mode="core",
+                                                        row_offset=3)),
+                                ("core-off", part, dict(sign=-1, mode="core",
+                                                        row_offset=n + 5)),
+                                ("forward", g, dict(sign=1, mode="forward")),
+                                ("forward-off", part,
+                                 dict(sign=1, mode="forward", row_offset=1)),
+                                ("inverse", g, dict(sign=-1, mode="inverse",
+                                                    corr=corr))):
+                            got = S.sfdprt(x, strip_rows=h, m_block=mb, **kw)
+                            torch.cuda.synchronize()
+                            err = check_close(
+                                f"K1 edge {label} N={n} H={h} M={mb} B={b} "
+                                f"{dt}", got, S.sfdprt_plain(x, **kw), n)
+                            worst[kw["mode"]] = max(worst.get(kw["mode"], 0.0),
+                                                    err)
+                            cases += 1
     # int32 overflow: skew-sums, row sums and Z + corr wrap as in JAX, and
     # the inverse's floor divide sees negative numerators
     big = 2 ** 28
-    for n in (13, 251):
+    for n in (13, 61, 251):
         h, mb = pallas_block_spec(n)
         g = torch.as_tensor(rng.integers(-big, big, (3, n, n)),
                             dtype=torch.int32).to(dev)
@@ -312,6 +408,36 @@ def kernel_phase() -> dict:
             check_close(f"K1 overflow {label} N={n}", got,
                         S.sfdprt_plain(g, **kw), n)
             cases += 1
+    # N too wide for K1's block (14336 int32, 7168 int64 columns): the raw
+    # functions stream it through K5, or K4 where K5's ring cannot hold
+    # two padded rows (tuning.skew_holds / stream_dma_holds); 4-row
+    # partials at full width, unaligned offsets, every mode
+    from repro_torch.kernels import stream as ST
+    for n, dt_name, impl in WIDE_ROUTES:
+        dt = getattr(torch, dt_name)
+        g = torch.as_tensor(rng.integers(-200, 256, (1, 4, n)),
+                            dtype=dt).to(dev)
+        corr = torch.as_tensor(rng.integers(-5000, 5000, (1, n)),
+                               dtype=dt).to(dev)
+        for label, kw in (("core-", dict(sign=-1, mode="core",
+                                         row_offset=n - 2)),
+                          ("forward", dict(sign=1, mode="forward",
+                                           row_offset=3)),
+                          ("inverse", dict(sign=-1, mode="inverse",
+                                           corr=corr, row_offset=5))):
+            k1_before = S.LAUNCHES
+            st_before = ST.IMPL_MODE_LAUNCHES[(impl, kw["mode"])]
+            got = S._skew(g, strip_rows=16, m_block=8, **kw)
+            torch.cuda.synchronize()
+            if (S.LAUNCHES != k1_before or ST.IMPL_MODE_LAUNCHES[
+                    (impl, kw["mode"])] != st_before + 1):
+                fail(f"wide N={n} {dt} {label} did not stream through "
+                     f"{impl} alone")
+            err = check_close(f"wide {impl} {label} N={n} {dt}", got,
+                              S.sfdprt_plain(g, **kw), n)
+            worst[kw["mode"]] = max(worst.get(kw["mode"], 0.0), err)
+            cases += 1
+            del got
     log(f"kernel phase: {cases} cases agree with the plain version "
         f"(max |err| by mode: {worst})")
     return worst
@@ -328,29 +454,49 @@ def pipeline_tol(got, aux_want):
             else PIPE_F32_REL) * scale
 
 
+def pipe_stage(tile, n: int, itemsize: int, op: str, stage_rows: int):
+    """K2's ``tile`` at N with stages of at most ``stage_rows`` rows (the
+    ring re-sized in the slots it aliases, laid out by
+    ``tuning.pipeline_geometry`` as ``tuning.pipeline_tile``'s own), for
+    the edges."""
+    from repro_torch.kernels.tuning import pipeline_geometry
+    return pipeline_geometry(n, itemsize, op, tile.m_block, stage_rows)
+
+
 def pipeline_kernel_phase() -> dict:
     """K2 against its plain version: ops none/mul/conv, operand forms
     image and proj, shared and batched operands, awkward m_block and
     group, batch 1 and 3, int32/int64 bit-exact, float32/float64 within
     tolerance, inputs with negatives (the mul case is no transform, so
     the final floor divide sees negative numerators) and int32 values
-    whose sums and products overflow."""
+    whose sums and products overflow; the register tile's edges (N = 31,
+    61 and 257 -- two conv runs of 32R there -- m_block 1 and 5, stage
+    heights 3 and 7, batch 1 and 3).  Fails if ptxas spilled in any
+    instantiation."""
     import numpy as np
     import torch
     from repro_torch.kernels import pipeline as P
     from repro_torch.kernels.sfdprt import sfdprt_plain
-    from repro_torch.kernels.tuning import pipeline_block_spec
+    from repro_torch.kernels.tuning import pipeline_block_spec, pipeline_tile
 
+    check_no_spills("pipeline")
     rng = np.random.default_rng(3)
     dev = torch.device("cuda")
     dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
     worst = {}
     cases = 0
 
-    def run(label, f, w, op, form, mb, grp):
+    def run(label, f, w, op, form, mb, grp, stage_rows=None):
         nonlocal cases
-        got, got_aux = P.pipeline_raw(f, w, op=op, operand_form=form,
-                                      m_block=mb, group=grp)
+        if stage_rows is None:
+            got, got_aux = P.pipeline_raw(f, w, op=op, operand_form=form,
+                                          m_block=mb, group=grp)
+        else:
+            n, item = f.shape[-1], f.element_size()
+            tile = pipe_stage(pipeline_tile(n, item, mb, op), n, item, op,
+                              stage_rows)
+            got, got_aux = P.pipeline_launch_tile(f, w, tile, op=op,
+                                                  operand_form=form)
         torch.cuda.synchronize()
         want, want_aux = P.pipeline_plain(f, w, op=op, operand_form=form)
         torch.cuda.synchronize()
@@ -395,8 +541,32 @@ def pipeline_kernel_phase() -> dict:
                     for label, w, op, form in runs:
                         run(f"{label} N={n} M={mb} G={grp} B={b} {dt}", f,
                             w, op, form, mb, grp)
+    for n in PIPE_EDGE_NS:                   # the register tile's edges
+        for mb in TILE_EDGE_MBLOCKS:
+            for h in TILE_EDGE_HEIGHTS:
+                for b in (1, 3):
+                    for dt in dtypes:
+                        def make(shape, lo=-200, hi=256):
+                            if dt.is_floating_point:
+                                a = rng.random(shape)
+                            else:
+                                a = rng.integers(lo, hi, shape)
+                            return torch.as_tensor(a).to(dt).to(dev)
+
+                        f = make((b, n, n))
+                        gb = make((b, n, n), -9, 10)
+                        for label, w, op, form in (
+                                ("none", None, "none", "proj"),
+                                ("mul", make((b, n + 1, n), -9, 10), "mul",
+                                 "proj"),
+                                ("conv image", gb, "conv", "image"),
+                                ("conv proj", sfdprt_plain(
+                                    gb, sign=1, mode="forward"), "conv",
+                                 "proj")):
+                            run(f"edge {label} N={n} M={mb} H={h} B={b} {dt}",
+                                f, w, op, form, mb, 1, stage_rows=h)
     # int32 overflow: forward sums, conv products and inverse sums wrap
-    for n in (13, 251):
+    for n in (13, 61, 251):
         big = 2 ** 28
         f = torch.as_tensor(rng.integers(-big, big, (3, n, n)),
                             dtype=torch.int32).to(dev)
@@ -607,21 +777,34 @@ def pipeline_main_path_phase() -> dict:
     return launches
 
 
+#: m_block values of K2's sweep at radon_251: blocks per image 32, 16,
+#: 12, 8, 6 and 4 (the table's 64 gives 63 directions; the registers
+#: allow 66 at most, so no m_block gives fewer blocks)
+PIPE_SWEEP_MBLOCKS = (8, 16, 21, 32, 42, 64)
+
+
 def pipeline_timing_phase(launches: dict, worst: dict) -> list:
-    """K2 vs its plain version at the main path's shapes, per op."""
+    """K2 vs its plain version at the main path's shapes, per op, with its
+    design, ptxas's registers and the SASS inner loops (instructions per
+    add of the skew-sums, per multiply-add of the conv window); and, for
+    conv and none, the kernel by m_block: ms against blocks per image,
+    fitted as a + blocks * c, which separates the cost that every block of
+    an image repeats (its pass over the image's rows and its N^2 atomics)
+    from the cost of the directions."""
     import numpy as np
     import torch
     from repro_torch.configs.radon_251 import config
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import _build
     from repro_torch.kernels import pipeline as P
     from repro_torch.kernels.sfdprt import sfdprt_plain
-    from repro_torch.kernels.tuning import pipeline_block_spec
+    from repro_torch.kernels.tuning import pipeline_block_spec, pipeline_tile
 
     cfg = config()
     n, b = cfg.n, cfg.batch
     mb, grp = pipeline_block_spec(n)
-    eff_mb = {op: P.smem_blocks(n, 4, mb, op)[0]
-              for op in P.PIPELINE_OPS}
+    ptx = ptxas_report("pipeline")
+    sass = sass_hot_blocks(_build._lib_path("pipeline"))
     dev = torch.device("cuda")
     f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
     kern = torch.zeros((1, n, n), dtype=torch.int32, device=dev)
@@ -643,6 +826,7 @@ def pipeline_timing_phase(launches: dict, worst: dict) -> list:
     }
     rows = []
     for op, (opd, form, nbytes, ops) in cases.items():
+        t = pipeline_tile(n, item, mb, op)
         k_ms = cuda_ms(lambda: P.pipeline_raw(f, opd, op=op,
                                               operand_form=form,
                                               m_block=mb, group=grp))
@@ -651,6 +835,7 @@ def pipeline_timing_phase(launches: dict, worst: dict) -> list:
                        reps=3, warm=1)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / INT32_ADDS_PER_S
+        key = ("pipeline_kernel", "int32", f"K={t.cols}")
         rows.append({
             "name": f"pipeline_kernel[{op}]",
             "route": "cuda",
@@ -666,11 +851,45 @@ def pipeline_timing_phase(launches: dict, worst: dict) -> list:
             # convolution (or this fused round trip) on CUDA: integer
             # matmul/conv are not implemented there
             "library_ms": None,
+            "shape": f"N={n} B={b} int32 m_block={mb}",
+            "design": {"directions_per_block": t.m_block,
+                       "blocks_per_image": t.blocks,
+                       "consumer_warps": t.warps, "producer_warps": 1,
+                       "cols_per_lane": t.cols, "items_per_warp": t.items,
+                       "conv_run": t.conv_run, "conv_passes": t.conv_passes,
+                       "stage_rows": t.stage_rows, "ring_slots": t.slots,
+                       "smem_bytes": t.smem,
+                       "atomics_per_call": b * t.blocks * n * n,
+                       "ptxas": ptx.get(key),
+                       "sass_hot_block": sass.get(key)},
         })
         log(f"timing pipeline {op}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({rows[-1]['bound_by']}; {ops:.4g} int32 ops; N={n} B={b} "
-            f"int32 m_block {mb} -> {eff_mb[op]} in shared memory)")
+            f"int32 m_block {mb}; {rows[-1]['design']})")
+        if op == "mul":
+            continue
+        by_m = {}
+        for m in PIPE_SWEEP_MBLOCKS:
+            tm = pipeline_tile(n, item, m, op)
+            m_ms = cuda_ms(lambda: P.pipeline_launch_tile(f, opd, tm, op=op))
+            by_m[m] = {"directions_per_block": tm.m_block,
+                       "blocks_per_image": tm.blocks,
+                       "consumer_warps": tm.warps, "ms": m_ms}
+            log(f"timing pipeline {op} at m_block {m} ({tm.m_block} "
+                f"directions, {tm.blocks} blocks per image, {tm.warps} "
+                f"consumer warps): {m_ms:.4f} ms")
+        xs = np.array([v["blocks_per_image"] for v in by_m.values()], float)
+        ys = np.array([v["ms"] for v in by_m.values()])
+        slope, icpt = np.polyfit(xs, ys, 1)
+        share = slope * t.blocks / k_ms
+        rows[-1]["by_m_block"] = by_m
+        rows[-1]["per_block_fit"] = {"ms_per_block_per_image": slope,
+                                     "ms_intercept": icpt,
+                                     "per_block_share": share}
+        log(f"timing pipeline {op}: ms ~ {icpt:.4f} + {slope:.4f} x blocks "
+            f"per image; the per-block cost is {100 * share:.1f}% of the "
+            f"kernel at {t.blocks} blocks per image")
     return rows
 
 
@@ -722,25 +941,49 @@ def pipeline_profile_phase() -> None:
         f"{1 - busy:.4f})")
 
 
-def timing_phase(launches: dict, worst: dict) -> list:
-    """Kernel vs plain version at the main path's shapes, per mode."""
+def k1_design(t, ptx: dict, sass: dict) -> dict:
+    """K1's tile (``tuning.skew_tile``) with ptxas's registers and the
+    SASS inner loop of its int32 instantiation."""
+    key = ("sfdprt_kernel", "int32", f"K={t.cols}")
+    return {"directions_per_block": t.m_block, "cols_per_lane": t.cols,
+            "items_per_warp": t.items, "consumer_warps": t.warps,
+            "producer_warps": 1, "stage_rows": t.stage_rows,
+            "ring_slots": t.slots, "pad_cols": t.pad, "smem_bytes": t.smem,
+            "blocks_per_image": t.blocks, "blocks_per_sm": t.per_sm,
+            "ptxas": ptx.get(key), "sass_hot_block": sass.get(key)}
+
+
+def timing_phase(launches: dict, worst: dict, one_image_launches: int
+                 ) -> list:
+    """K1 vs its plain version at the main path's shapes, per mode, with
+    its design, ptxas's registers, the SASS inner loop's instructions per
+    add and the adds per clock per SM; the forward of one image (B = 1,
+    ``Conv2D``'s kernel, launched ``one_image_launches`` times on the
+    pipeline path); and the forward by directions per block D and by the
+    ring's shape."""
     import numpy as np
     import torch
     from repro_torch.configs.radon_251 import config
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import _build
     from repro_torch.kernels import sfdprt as S
-    from repro_torch.kernels.tuning import pallas_block_spec
+    from repro_torch.kernels.tuning import (pallas_block_spec, skew_geometry,
+                                            skew_tile)
 
     cfg = config()
     n, b = cfg.n, cfg.batch
     h, mb = pallas_block_spec(n)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptx = ptxas_report("sfdprt")
+    sass = sass_hot_blocks(_build._lib_path("sfdprt"))
     f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
     r = S.dprt_raw(f, strip_rows=h, m_block=mb)
     corr = (r[:, n, :] - r[:, 0, :].sum(1, keepdim=True,
                                         dtype=torch.int32)).contiguous()
     w = torch.from_numpy(np.random.default_rng(2).integers(
         -1000, 1000, (b, n, n)).astype(np.int32)).to(dev)
+    one = f[:1].contiguous()
     torch.cuda.synchronize()
     item = 4
     cases = {
@@ -752,29 +995,70 @@ def timing_phase(launches: dict, worst: dict) -> list:
                     b * n * n * n + 2 * b * n * n),
         "core": (w, dict(sign=-1, mode="core"),
                  item * 2 * b * n * n, b * n * n * n),
+        "forward,B=1": (one, dict(sign=1, mode="forward"),
+                        item * (n * n + (n + 1) * n), n * n * n + n * n),
     }
     rows = []
     for mode, (x, kw, nbytes, ops) in cases.items():
         k_ms = cuda_ms(lambda: S.sfdprt(x, strip_rows=h, m_block=mb, **kw))
+        clock = sm_clock_mhz()[0]
         p_ms = cuda_ms(lambda: S.sfdprt_plain(x, **kw), reps=5, warm=1)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / INT32_ADDS_PER_S
+        bx = x.shape[0]
+        t = skew_tile(n, x.shape[1], item, h, mb, n + 1 if kw["mode"] ==
+                      "forward" else n, batch=bx, sms=sms)
+        mode_key = kw["mode"]
         rows.append({
             "name": f"sfdprt_kernel[{mode}]",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sfdprt.cu",
             "replaces": "src/repro/kernels/sfdprt.py:210",
-            "launches": launches[mode],
-            "max_abs_err": worst.get(mode, 0.0),
+            "launches": (one_image_launches if bx == 1
+                         else launches[mode_key]),
+            "max_abs_err": worst.get(mode_key, 0.0),
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no PyTorch call computes the skew-sum
             "library_ms": None,
+            "shape": f"N={n} B={bx} int32",
+            "design": k1_design(t, ptx, sass),
+            "adds_per_clock_per_sm": bx * n ** 3 / (k_ms * 1e-3 * clock
+                                                    * 1e6 * sms),
+            "sm_clock_mhz": clock,
         })
         log(f"timing {mode}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"({rows[-1]['bound_by']}; N={n} B={b} int32 H={h} M={mb})")
+            f"({rows[-1]['bound_by']}; N={n} B={bx} int32; "
+            f"{rows[-1]['adds_per_clock_per_sm']:.2f} adds/clock/SM at "
+            f"{clock:.0f} MHz; {rows[-1]['design']})")
+    # the forward by directions per block D (the tile lowers the largest
+    # the registers allow to fill the waves of SMs)
+    fwd = rows[0]
+    base = skew_tile(n, n, item, h, mb, n + 1, batch=b, sms=sms)
+    by_d = {}
+    for d in sorted({8, 16, 24, base.m_block, 32, 40, 48, 56}):
+        t = skew_geometry(n, item, n + 1, d, base.stage_rows, base.slots)
+        warps = t.warps
+        d_ms = cuda_ms(lambda: S.sfdprt_launch_tile(f, t, sign=1,
+                                                    mode="forward"))
+        by_d[d] = {"ms": d_ms, "blocks_per_image": t.blocks,
+                   "consumer_warps": warps}
+        log(f"timing K1 forward at D={d} ({warps} consumer warps, "
+            f"{t.blocks} blocks per image): {d_ms:.4f} ms")
+    fwd["by_directions_per_block"] = by_d
+    # the forward by the ring's shape (stage rows x slots) at the tile's D
+    by_stage = {}
+    for sh, sl in ((base.stage_rows, base.slots), (11, 3), (9, 4)):
+        t = skew_geometry(n, item, n + 1, base.m_block, sh, sl)
+        s_ms = cuda_ms(lambda: S.sfdprt_launch_tile(f, t, sign=1,
+                                                    mode="forward"))
+        by_stage[f"{sh}x{sl}"] = s_ms
+        log(f"timing K1 forward with stages of {sh} rows x {sl}: "
+            f"{s_ms:.4f} ms")
+    fwd["by_stage_shape"] = by_stage
     return rows
 
 
@@ -816,10 +1100,7 @@ def stream_kernel_phase() -> dict:
     from repro_torch.kernels import stream as ST
     from repro_torch.kernels.tuning import pallas_block_spec
 
-    spills = {key: v for key, v in ptxas_stream_report().items()
-              if v.get("spill_stores") or v.get("spill_loads")}
-    if spills:
-        fail(f"ptxas spills registers in the streamed kernel: {spills}")
+    check_no_spills("stream")
     rng = np.random.default_rng(6)
     dev = torch.device("cuda")
     dtypes = (torch.int32, torch.int64, torch.float32, torch.float64)
@@ -1073,13 +1354,13 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     from repro_torch.kernels import sfdprt as S
     from repro_torch.kernels import stream as ST
     from repro_torch.kernels.tuning import (STREAM_WARPS, pallas_block_spec,
-                                            stream_tile)
+                                            skew_tile, stream_tile)
 
     n, b, sr = GIANT_N, GIANT_BATCH, GIANT_STREAM_ROWS
     _, mb = pallas_block_spec(n)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ptx = ptxas_stream_report()
+    ptx = ptxas_report("stream")
     sass = sass_hot_blocks(_build._lib_path("stream"))
     log(f"ptxas (registers, spill bytes) by instantiation: {ptx}")
     log(f"SASS hot block by instantiation: {sass}")
@@ -1113,8 +1394,8 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
                 "cluster": 1, "pad_cols": t.pad, "smem_bytes": t.smem,
                 "blocks": batch * t.blocks,
                 "image_rereads": t.blocks,
-                "ptxas": ptx.get((dtype, impl)),
-                "sass_hot_block": sass.get((dtype, impl))}
+                "ptxas": ptx.get(("stream_kernel", dtype, impl)),
+                "sass_hot_block": sass.get(("stream_kernel", dtype, impl))}
 
     def rates(k_ms, adds, t, batch, nbytes_image, clock_mhz):
         secs = k_ms * 1e-3
@@ -1186,20 +1467,20 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
             f"{b * tile_d.blocks} blocks, {waves} waves): {d_ms:.4f} ms, "
             f"{d_ms / waves:.4f} ms per block")
     k5_fwd["by_directions_per_block"] = by_d
-    # the comparison: K1 forward at the same shape, through its row tiles
-    # (no stream_rows); K1 is not on this path, so it is a field of the
-    # K5 forward row, not a row of its own
+    # the comparison: K1 forward at the same shape, without stream_rows;
+    # K1 is not on this path, so it is a field of the K5 forward row, not
+    # a row of its own
     th, _ = pallas_block_spec(n)
     k1_ms = cuda_ms(lambda: S.sfdprt(f, sign=1, mode="forward",
                                      strip_rows=th, m_block=mb),
                     reps=GIANT_TIMING_REPS, warm=1)
-    tile = S.smem_tile_rows(n, n, 4, th)
+    tk1 = skew_tile(n, n, 4, th, mb, n + 1, batch=b, sms=sms)
     k5_fwd["k1_same_shape_ms"] = k1_ms
-    k5_fwd["k1_same_shape"] = (f"K1 forward, row tiles of {tile} rows, "
-                               f"m_block {mb}")
-    log(f"timing K1 forward at N={n} B={b}: {k1_ms:.4f} ms (row tiles of "
-        f"{tile} rows, m_block {mb}; partial sums in the output between "
-        f"tiles)")
+    k5_fwd["k1_same_shape"] = (f"K1 forward, {tk1.m_block} directions per "
+                               f"block, stages of {tk1.stage_rows} rows x "
+                               f"{tk1.slots}")
+    log(f"timing K1 forward at N={n} B={b}: {k1_ms:.4f} ms "
+        f"({k5_fwd['k1_same_shape']})")
     # K5 forward at radon_251 (N = 251, B = 256, stream_rows 251) beside
     # K1 there: data for the K1 redesign, not a route
     cfg = config()
@@ -1671,7 +1952,8 @@ def main() -> int:
     giant_launches = giant_main_path_phase()
     mesh_launches = mesh_main_path_phase()
     four_shards_phase()
-    kernels = timing_phase(launches, worst)
+    kernels = timing_phase(launches, worst,
+                           pipe_launches["k1"]["forward"])
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
     kernels += stream_timing_phase(giant_launches, stream_worst)
     kernels += tail_timing_phase(mesh_launches, tail_worst)

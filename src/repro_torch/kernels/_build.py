@@ -5,7 +5,9 @@ Each library in :data:`LIBRARIES` is compiled from ``csrc/`` with
 and loaded with ``ctypes`` -- no PyTorch headers, so a build takes
 seconds.  Builds happen at first use (never at import), go to
 ``build/repro_torch/`` at the repository root, and are keyed by a hash
-of the sources and the flags, so a second run reuses the ``.so``.
+of the sources, every header in ``csrc/`` (``*.cuh``, which the sources
+include) and the flags, so a second run reuses the ``.so`` and an edit
+to a shared header rebuilds every library.
 Several libraries build in parallel: one ``nvcc`` per library, all
 started together.  The toolkit is found the way PyTorch finds it
 (``torch.utils.cpp_extension.CUDA_HOME``); nothing else outside the
@@ -52,6 +54,9 @@ def _lib_path(name: str) -> Path:
     for src in LIBRARIES[name]:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -16,46 +16,76 @@
 //
 // without writing rf, rg or rc to device memory.
 //
+// What bounds it.  At the main path's shapes (B = 256, N = 251, int32,
+// conv) the call moves ~129 MB (~39 us at 3.35 TB/s) but does ~12.2e9
+// integer adds and multiply-adds (forward, conv, inverse: ~4e9 each), so
+// it is bound by operations (0.73 ms at 16.75e12 int32 operations/s).
+// The forward and the inverse are skew-sums, one shared-memory load per
+// add (32 adds per clock per SM at most, skew_tile.cuh); the conv reuses
+// its loads from registers.  On top come the inverse's atomics: every
+// block adds its directions' share onto all N^2 outputs of its image.
+//
 // Design.  Kernel 1 (pipeline_kernel) runs one thread block per (image b,
-// block of m_block directions), over ceil((N+1)/m_block) blocks, so the
-// row-sum row N falls in the last block.  The block computes rf for its
-// directions into shared memory, staging the image through a tile of
-// tile_rows rows as K1 does (a 251 x 251 int32 image, 252 KB, does not
-// fit the 227 KB a block can hold); for the image-form conv operand it
-// computes rg the same way, for the projection form it copies its rows.
-// The epilogue runs in shared memory: the conv is an O(N) loop per
-// output over the operand row (rc goes to the tile area, free by then),
-// mul and none work in place.  The block writes the aux rows it owns and
-// then adds its directions' share of the inverse onto all N x N outputs.
-// The blocks of one image run in parallel, so those partial sums are
-// combined with atomicAdd into an output zeroed on the stream first:
-// integer partials add in the unsigned type of the same width, which is
+// block of D directions), over ceil((N+1)/D) blocks, so the row-sum row
+// N falls in the last block; `warps` consumer warps and one producer warp
+// that streams the image (and an image-form operand) through a ring of
+// padded stages (skew_tile.cuh).  Three stages, on the block's D
+// directions:
+//
+//   forward  the register-tiled skew-sum of skew_tile.cuh over the image
+//            (row N: a shuffle sum of each staged row); for conv the rf
+//            rows then go to shared memory once, and an image-form operand
+//            is summed the same way;
+//   op       conv: a warp per direction; lane L owns the R consecutive
+//            outputs d = R*L + k (R odd: the lanes' loads hit 32 banks),
+//            and for each t reads rf[m, t] (a broadcast) and ONE new
+//            element of the operand row, then does R multiply-adds against
+//            a window of the operand held in registers, the paper's
+//            circular shift register: the loop over t is unrolled by R,
+//            so the window rotates by register renaming, not by moves.
+//            The operand row sits in shared memory extended to columns
+//            -(N-1) .. 32R*P (column y is <y>_N), so no index wraps.
+//            mul and none stay elementwise, in the forward's registers;
+//   inverse  rc overwrites the operand window of its own direction (only
+//            the direction's warp reads it), padded as a staged row is,
+//            and the same register-tiled skew-sum runs with sign -1 and
+//            row offset m0 over the block's rc rows, for items (output row
+//            i, column run); each output is added with one atomicAdd per
+//            block into an output zeroed on the stream first.
+//
+// Integer partials add in the unsigned type of the same width, which is
 // exact, wraps as JAX does and does not depend on the order; float
 // partials add in an order that changes from run to run, so floats agree
-// with the plain version within a tolerance, never bit for bit.
-// Kernel 2 (pipeline_finish_kernel), launched on the same stream after
-// kernel 1, applies the correction and the floor divide once every block
-// of the image is done: one block per (image, row band) reduces S from
-// aux and rewrites its rows.  One pipeline call is a memset and these two
+// with the plain version within a tolerance, never bit for bit.  Kernel 2
+// (pipeline_finish_kernel), launched on the same stream after kernel 1,
+// applies the correction and the floor divide once every block of the
+// image is done: one block per (image, row band) reduces S from aux and
+// rewrites its rows.  One pipeline call is a memset and these two
 // launches.
+//
+// Shared memory (one block per SM, up to 227 KB): the ring's mbarriers;
+// for conv the rf rows (D + 1 of N: the last holds an image-form
+// operand's row sums); then the work region of D direction slots -- the
+// ring while rows stream, then each direction's operand window (conv),
+// then its padded rc row.  The budget splits between D (fewer blocks per
+// image, so fewer atomics and fewer passes over each image) and that
+// padding; the host (kernels/tuning.py:pipeline_tile) picks D, the warps,
+// K and R from N and the budgets and lays the shared memory out
+// (tuning.py:pipeline_geometry); this file takes that layout as given
+// and only checks it against its constants and budgets.  m_block only
+// caps D; integer results do not depend on it.
 //
 // K3 (pipeline_tail_kernel, entry pipeline_tail_launch) replaces the same
 // TPU kernel with source="proj", defer=True: the mesh pipeline's tail.
 // Its input is one shard of already-summed projection rows whose first
 // global direction is row_offset, so it drops the forward stage and runs
-// the same device functions as kernel 1 from the epilogue on: the op
-// against the operand's rows at the global directions, the aux rows
-// where the shard holds directions 0 and N, and the inverse of the
-// shard's directions < N added into Z with atomicAdd.  It launches no
-// finish kernel: the correction needs Z and aux summed over every shard
-// first, which the caller does after its collectives.
-//
-// Bound on the H100: at the main path's shapes (B = 256, N = 251, int32,
-// conv) the call moves ~129 MB (~39 us at 3.35 TB/s) but does ~12.2e9
-// integer adds and multiply-adds (forward, conv, inverse: ~4e9 each), so
-// it is bound by operations.  Each of them here costs a shared-memory
-// load and an index step as well; register tiling is left to a later
-// change.
+// the device functions load_rows / apply_op / write_aux / inverse_add:
+// the op against the operand's rows at the global directions, the aux
+// rows where the shard holds directions 0 and N, and the inverse of the
+// shard's directions < N added into Z with atomicAdd (one shared-memory
+// load per add and per multiply-add; not yet on K2's register tile).  It
+// launches no finish kernel: the correction needs Z and aux summed over
+// every shard first, which the caller does after its collectives.
 //
 // Integer rules that differ from JAX: signed overflow is undefined in C++
 // while JAX wraps, so every integer sum and product runs in the unsigned
@@ -66,39 +96,29 @@
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
+
+#include "skew_tile.cuh"
 
 namespace {
+
+using skew::arith_t;
+using skew::divide_by_n;
 
 constexpr int kNone = 0;
 constexpr int kMul = 1;
 constexpr int kConv = 2;
-constexpr int kThreads = 256;
-constexpr int kFinishRows = 16;  // output rows per block of kernel 2
-
-// The arithmetic type: the unsigned type of the same width for integers
-// (wrapping, defined), the type itself for floats.
-template <typename T, bool = std::is_integral<T>::value>
-struct Arith {
-  using type = T;
-};
-template <typename T>
-struct Arith<T, true> {
-  using type = typename std::make_unsigned<T>::type;
-};
-template <typename T>
-using arith_t = typename Arith<T>::type;
-
-template <typename T>
-__device__ __forceinline__ T divide_by_n(T total, int n) {
-  if constexpr (std::is_integral<T>::value) {
-    T q = total / static_cast<T>(n);
-    if (q * static_cast<T>(n) != total && total < 0) q -= 1;  // floor
-    return q;
-  } else {
-    return total / static_cast<T>(n);
-  }
-}
+constexpr int kThreads = 256;     // K3 and the finish kernel
+constexpr int kFinishRows = 16;   // output rows per block of kernel 2
+// K2: at most 11 consumer warps and the producer, one block per SM: ptxas
+// (which counts warps in fours) keeps 168 registers a thread; at 13 to 16
+// warps it keeps 128, and the int32 and float32 instantiations spilled.
+constexpr int kPipeMaxWarps = 11;
+constexpr int kPipeThreads = (kPipeMaxWarps + 1) * 32;
+// Items a K2 warp holds per accumulator width (kernels/tuning.py:
+// PIPE_ITEMS): fewer than K1's 8 for 4-byte sums, whose 64 accumulators
+// spilled at 168 registers here though K1 holds them in 128.
+template <int kBytes>
+constexpr int kPipeItems = kBytes == 4 ? 6 : 4;
 
 __device__ __forceinline__ void add_to(int32_t* p, uint32_t v) {
   atomicAdd(reinterpret_cast<unsigned int*>(p), static_cast<unsigned int>(v));
@@ -112,49 +132,242 @@ __device__ __forceinline__ void add_to(double* p, double v) {
   atomicAdd(p, v);
 }
 
-// dst[ml * n + d] = R(m0 + ml, d) of the (n, n) image src for ml < mc:
-// the skew-sum sum_i src[i, <d + m*i>_n] for m < n, the row sum
-// R(n, d) = sum_j src[d, j] for m == n.  The image passes through
-// `tile` in tiles of tile_rows rows; each output is owned by one thread
-// and carries its partial sum in dst between tiles.
-template <typename T>
-__device__ void forward_rows(const T* __restrict__ src, T* tile,
-                             arith_t<T>* dst, int n, int m0, int mc,
-                             int tile_rows) {
-  using U = arith_t<T>;
-  const int work = mc * n;
-  for (int t0 = 0; t0 < n; t0 += tile_rows) {
-    const int ht = min(tile_rows, n - t0);
-    __syncthreads();  // every thread is done with the previous tile
-    const T* s = src + static_cast<long long>(t0) * n;
-    for (int e = threadIdx.x; e < ht * n; e += blockDim.x) tile[e] = s[e];
-    __syncthreads();
-    for (int w = threadIdx.x; w < work; w += blockDim.x) {
-      const int ml = w / n;
-      const int d = w - ml * n;
-      const int m = m0 + ml;
-      U acc = (t0 == 0) ? U(0) : dst[w];
-      if (m < n) {
-        int idx = static_cast<int>((d + static_cast<long long>(m) * t0) % n);
-        const T* row = tile;
-        for (int i = 0; i < ht; ++i, row += n) {
-          acc += static_cast<U>(row[idx]);
-          idx += m;
-          if (idx >= n) idx -= n;
-        }
-      } else {  // m == n: the row-sum row
-        const int lr = d - t0;
-        if (lr >= 0 && lr < ht) {
-          const T* row = tile + static_cast<long long>(lr) * n;
-          for (int j = 0; j < n; ++j) acc += static_cast<U>(row[j]);
-        }
-      }
-      dst[w] = acc;
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
+// What the host decided (kernels/tuning.py:pipeline_tile), checked by
+// launch_checked before any launch.
+struct PipeGeometry {
+  long long f_bstride, w_bstride;
+  int n;
+  int dirs;         // D, directions per block
+  int n_dblocks;    // direction blocks per image
+  int runs;         // column runs per direction, ceil(N / 32K)
+  int warps;        // consumer warps per block
+  int stage_rows;   // rows per stage
+  int slots;        // stages in the ring
+  int row_bytes;    // bytes of one padded staged row, a multiple of 16
+  int pad;          // padding columns of a staged or rc row, 32K - 1
+  int conv_passes;  // P: runs of 32R outputs per direction in the conv
+  int e_slot;       // elements of one direction's slot in the work region
+  int rc_off;       // where a direction's rc row starts in its slot
+  int rf_bytes;     // bytes of the rf region (conv), 0 otherwise
+  int op, operand_image;
+};
+
+// One run of R consecutive conv outputs d0 + k, k < R, of one direction:
+// acc[k] = sum_t a[t] * e[k - t], where e points at column d0 of the
+// operand row extended to columns <= d0 - (N - 1) (column y is <y>_N).
+// The window of the R operand elements the run needs at step t,
+// e[k - t] for k < R, shifts by one per step: element e[-t] enters, the
+// oldest leaves.  It lives in v[] as a ring indexed (k - t) mod R, so one
+// load per step refills it, and unrolling t by R makes every index a
+// constant: the rotation is register renaming.
+template <typename U, int R>
+__device__ __forceinline__ void conv_run(const U* __restrict__ a,
+                                         const U* __restrict__ e, int n,
+                                         U (&acc)[R]) {
+  U v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = U(0);
+#pragma unroll
+  for (int k = 1; k < R; ++k) v[k] = e[k];
+  int t0 = 0;
+#pragma unroll 1  // the body is unrolled by R already
+  for (; t0 + R <= n; t0 += R, a += R, e -= R) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      v[(R - s) % R] = e[-s];
+      const U at = a[s];
+#pragma unroll
+      for (int k = 0; k < R; ++k) acc[k] += at * v[(k - s + R) % R];
     }
   }
-  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    if (t0 + s < n) {
+      v[(R - s) % R] = e[-s];
+      const U at = a[s];
+#pragma unroll
+      for (int k = 0; k < R; ++k) acc[k] += at * v[(k - s + R) % R];
+    }
+  }
 }
 
+template <typename T, int K>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+pipeline_kernel(const T* __restrict__ f, const T* __restrict__ w,
+                T* __restrict__ out, T* __restrict__ aux,
+                const PipeGeometry geo) {
+  using U = arith_t<T>;
+  constexpr int I = kPipeItems<sizeof(T)>;
+  constexpr int R = skew::kConvRun<K>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem_raw);
+  U* const rf = reinterpret_cast<U*>(smem_raw + skew::kBarrierBytes);
+  unsigned char* const work = smem_raw + skew::kBarrierBytes + geo.rf_bytes;
+  U* const slots = reinterpret_cast<U*>(work);
+  const skew::Ring ring{work,
+                        bars,
+                        bars + skew::kMaxSlots,
+                        bars + 2 * skew::kMaxSlots,
+                        geo.stage_rows,
+                        geo.slots,
+                        geo.row_bytes,
+                        geo.pad};
+
+  const int n = geo.n;
+  const int b = blockIdx.x / geo.n_dblocks;
+  const int m0 = (blockIdx.x - b * geo.n_dblocks) * geo.dirs;
+  const int mc = min(geo.dirs, n + 1 - m0);  // direction rows of this block
+  const int ms = max(0, min(mc, n - m0));    // of which m < N
+  const bool owns_n = n < m0 + mc;
+  const T* const fb = f + b * geo.f_bstride;
+  const T* const wb = w == nullptr ? nullptr : w + b * geo.w_bstride;
+  T* const ab = aux + static_cast<long long>(b) * 2 * n;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int op = geo.op;
+
+  if (threadIdx.x == 0) skew::ring_init(ring, geo.warps);
+  __syncthreads();
+  if (warp == geo.warps) {  // the producer warp: the image, then the operand
+    const int k = skew::produce(ring, fb, n, n, 0, lane);
+    if (geo.operand_image) skew::produce(ring, wb, n, n, k, lane);
+    return;
+  }
+  const int cthreads = geo.warps * 32;
+  const int runs = geo.runs;
+
+  // -- forward: rf of the block's directions m < N in registers; row N by
+  // row sums (conv: into rf; mul, none: rc row N straight into aux)
+  const int q0 = warp * I;
+  const int live = max(0, min(I, ms * runs - q0));
+  skew::Tile<U, K, I> tile;
+  skew::tile_init(tile, q0, live, m0, runs, 1, n, 0);
+  const int k1 = skew::consume(
+      ring, tile, live > 0, fb, n, n, 0, owns_n, warp, geo.warps, lane,
+      [&](int t, U sum) {
+        if (op == kConv) {
+          rf[static_cast<size_t>(n - m0) * n + t] = sum;
+        } else if (op == kMul) {
+          ab[n + t] = static_cast<T>(
+              sum * static_cast<U>(wb[static_cast<long long>(n) * n + t]));
+        } else {
+          ab[n + t] = static_cast<T>(sum);
+        }
+      });
+  U* const rg_n = rf + static_cast<size_t>(geo.dirs) * n;  // conv, image form
+  if (op == kConv) {
+    skew::tile_emit(tile, q0, live, m0, runs, n, lane, [&](int m, int d, U v) {
+      rf[static_cast<size_t>(m - m0) * n + d] = v;
+    });
+    if (geo.operand_image) {  // rg of the operand image, the same way
+      skew::tile_init(tile, q0, live, m0, runs, 1, n, 0);
+      skew::consume(ring, tile, live > 0, wb, n, n, k1, owns_n, warp,
+                    geo.warps, lane, [&](int t, U sum) { rg_n[t] = sum; });
+    }
+  }
+  skew::consumers_sync(cthreads);  // the ring is drained: the slots are free
+
+  const int pad = geo.pad;
+  if (op == kConv) {
+    // -- the operand window of each direction: slot[y + N - 1] = rg[<y>_N]
+    // for y in [-(N - 1), 32R*P)
+    const int reach = 32 * R * geo.conv_passes;
+    const int ext = n - 1 + reach;
+    if (!geo.operand_image) {
+      for (int e = threadIdx.x; e < mc * ext; e += cthreads) {
+        const int ml = e / ext;
+        const int x = e - ml * ext;
+        slots[static_cast<size_t>(ml) * geo.e_slot + x] = static_cast<U>(
+            wb[static_cast<long long>(m0 + ml) * n + (x + 1) % n]);
+      }
+    } else {
+      skew::tile_emit(tile, q0, live, m0, runs, n, lane,
+                      [&](int m, int d, U v) {
+                        U* const e = slots +
+                                     static_cast<size_t>(m - m0) * geo.e_slot +
+                                     (n - 1);
+                        for (int y = d - n; y < reach; y += n) {
+                          if (y > -n) e[y] = v;
+                        }
+                      });
+      if (owns_n) {
+        U* const e = slots + static_cast<size_t>(n - m0) * geo.e_slot;
+        for (int x = threadIdx.x; x < ext; x += cthreads) {
+          e[x] = rg_n[(x + 1) % n];
+        }
+      }
+    }
+    skew::consumers_sync(cthreads);
+    // -- the conv, a warp per direction; its padded rc row replaces its
+    // operand window (P > 1: each run writes behind the columns the runs
+    // still to come read; P = 1: after the run, over the whole slot)
+    for (int ml = warp; ml < mc; ml += geo.warps) {
+      const int m = m0 + ml;
+      U* const slot = slots + static_cast<size_t>(ml) * geo.e_slot;
+      U* const rc = slot + geo.rc_off;
+      for (int p = geo.conv_passes - 1; p >= 0; --p) {
+        const int d0 = 32 * R * p + R * lane;
+        U acc[R];
+        conv_run<U, R>(rf + static_cast<size_t>(ml) * n, slot + (n - 1) + d0,
+                       n, acc);
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const int d = d0 + k;
+          if (d < n) {
+            for (int x = d; x < n + pad; x += n) rc[x] = acc[k];
+            if (m == 0) ab[d] = static_cast<T>(acc[k]);
+            if (m == n) ab[n + d] = static_cast<T>(acc[k]);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+    // -- mul, none: rc from the forward's registers into padded rows
+    skew::tile_emit(tile, q0, live, m0, runs, n, lane, [&](int m, int d, U v) {
+      if (op == kMul) {
+        v *= static_cast<U>(wb[static_cast<long long>(m) * n + d]);
+      }
+      if (m == 0) ab[d] = static_cast<T>(v);
+      U* const rc =
+          slots + static_cast<size_t>(m - m0) * geo.e_slot + geo.rc_off;
+      for (int x = d; x < n + pad; x += n) rc[x] = v;
+    });
+  }
+  skew::consumers_sync(cthreads);
+
+  // -- inverse: items (output row i, column run) in passes of warps x I;
+  // row ml of the skew-sum is rc of direction m0 + ml, so the window steps
+  // by <-i>_N from <32K*c - i*m0>_N
+  if (ms > 0) {
+    T* const ob = out + static_cast<long long>(b) * n * n;
+    const U* const rc0 = slots + geo.rc_off + lane;
+    const int total = n * runs;
+    for (int qb = 0; qb < total; qb += geo.warps * I) {
+      const int qi = qb + q0;
+      const int live_i = max(0, min(I, total - qi));
+      if (live_i == 0) break;  // warp-uniform
+      skew::tile_init(tile, qi, live_i, 0, runs, -1, n, m0 % n);
+#pragma unroll 1  // one rc row at a time, as in skew::consume
+      for (int ml = 0; ml < ms; ++ml) {
+        skew::tile_add_row(tile, rc0 + static_cast<size_t>(ml) * geo.e_slot,
+                           n);
+      }
+      skew::tile_emit(tile, qi, live_i, 0, runs, n, lane,
+                      [&](int i, int d, U v) {
+                        add_to(ob + static_cast<long long>(i) * n + d, v);
+                      });
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3's device functions (the mesh tail; K2 no longer uses them)
+// ---------------------------------------------------------------------------
 // dst[e] = src[e] for the first rows * n values (rows of the operand or
 // of already-assembled projections, in T), widened to the arithmetic type.
 template <typename T>
@@ -244,44 +457,6 @@ __device__ void inverse_add(const arith_t<T>* rc, T* __restrict__ ob, int n,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pipeline_kernel(const T* __restrict__ f, long long f_bstride,
-                const T* __restrict__ w, long long w_bstride,
-                T* __restrict__ out, T* __restrict__ aux, int n,
-                int m_block, int n_mblocks, int tile_rows, int op,
-                int operand_image) {
-  using U = arith_t<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  U* rf = reinterpret_cast<U*>(smem_raw);
-  U* rg = rf + static_cast<size_t>(m_block) * n;  // conv only
-  U* work = op == kConv ? rg + static_cast<size_t>(m_block) * n : rg;
-  T* tile = reinterpret_cast<T*>(work);  // image tiles, then rc for conv
-
-  const int b = blockIdx.x / n_mblocks;
-  const int m0 = (blockIdx.x - b * n_mblocks) * m_block;
-  const int mc = min(m_block, n + 1 - m0);  // direction rows of this block
-
-  forward_rows<T>(f + b * f_bstride, tile, rf, n, m0, mc, tile_rows);
-
-  const T* wb = w == nullptr
-                    ? nullptr
-                    : w + b * w_bstride + static_cast<long long>(m0) * n;
-  if (op == kConv) {
-    if (operand_image) {
-      forward_rows<T>(w + b * w_bstride, tile, rg, n, m0, mc, tile_rows);
-    } else {
-      load_rows<T>(rg, wb, n, mc);
-    }
-  }
-  const U* rc = apply_op<T>(rf, rg, work, wb, n, mc, op);
-  write_aux<T>(rc, aux + static_cast<long long>(b) * 2 * n, n, m0, mc);
-  const int mi = min(mc, n - m0);  // rows m < n of this block
-  if (mi > 0) {
-    inverse_add<T>(rc, out + static_cast<long long>(b) * n * n, n, m0, mi);
-  }
-}
-
 // K3, the mesh pipeline's shard-local tail (see pipeline_tail_launch).
 // One block per (image b, block of m_block of the shard's n_rows rows);
 // the block's first global direction is dir0 = row_offset + its first
@@ -353,43 +528,145 @@ pipeline_finish_kernel(T* __restrict__ out, const T* __restrict__ aux,
   }
 }
 
-template <typename T>
-int launch(const void* f, long long f_bstride, const void* w,
-           long long w_bstride, void* out, void* aux, int batch, int n,
-           int m_block, int tile_rows, int op, int operand_image,
-           cudaStream_t stream) {
-  const int n_mblocks = (n + 1 + m_block - 1) / m_block;
-  const long long blocks = static_cast<long long>(batch) * n_mblocks;
-  const int n_rblocks = (n + kFinishRows - 1) / kFinishRows;
+template <typename T, int K>
+int launch(const void* f, const void* w, void* out, void* aux, int batch,
+           const PipeGeometry& geo, size_t smem, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
+  const int n_rblocks = (geo.n + kFinishRows - 1) / kFinishRows;
   const long long fblocks = static_cast<long long>(batch) * n_rblocks;
   if (blocks > INT_MAX || fblocks > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int work_rows = op == kConv ? max(tile_rows, m_block) : tile_rows;
-  const int bufs = op == kConv ? 2 : 1;
-  const size_t smem =
-      static_cast<size_t>(bufs * m_block + work_rows) * n * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        pipeline_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pipeline_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(batch) * n * n * sizeof(T), stream);
+      out, 0, static_cast<size_t>(batch) * geo.n * geo.n * sizeof(T), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pipeline_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                       stream>>>(
-      static_cast<const T*>(f), f_bstride, static_cast<const T*>(w),
-      w_bstride, static_cast<T*>(out), static_cast<T*>(aux), n, m_block,
-      n_mblocks, tile_rows, op, operand_image);
+  pipeline_kernel<T, K><<<static_cast<unsigned>(blocks), (geo.warps + 1) * 32,
+                          smem, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(w),
+      static_cast<T*>(out), static_cast<T*>(aux), geo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   pipeline_finish_kernel<T><<<static_cast<unsigned>(fblocks), kThreads, 0,
                               stream>>>(static_cast<T*>(out),
-                                        static_cast<const T*>(aux), n,
+                                        static_cast<const T*>(aux), geo.n,
                                         n_rblocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile of kernels/tuning.py:pipeline_tile as the host passes it:
+// the fields of its PipelineTile, in their order.
+namespace tile {
+enum : int {
+  kStageRows,
+  kSlots,
+  kMBlock,
+  kCols,
+  kItems,
+  kWarps,
+  kRuns,
+  kPad,
+  kRowBytes,
+  kConvRun,
+  kConvPasses,
+  kESlot,
+  kRcOff,
+  kRfBytes,
+  kSmem,
+  kBlocks,
+  kCount
+};
+}  // namespace tile
+
+// Check the host's tile against this instantiation and the budgets, and
+// launch the instantiation of K.  The layout is the host's; these are
+// the conditions the kernel relies on.
+template <typename T>
+int launch_checked(const void* f, long long f_bstride, const void* w,
+                   long long w_bstride, void* out, void* aux, int batch,
+                   int n, const int* t, int op, int operand_image,
+                   cudaStream_t s) {
+  const int dirs = t[tile::kMBlock], warps = t[tile::kWarps];
+  const int cols = t[tile::kCols], items = t[tile::kItems];
+  const int conv_run = t[tile::kConvRun], smem = t[tile::kSmem];
+  PipeGeometry geo;
+  geo.f_bstride = f_bstride;
+  geo.w_bstride = w_bstride;
+  geo.n = n;
+  geo.dirs = dirs;
+  geo.runs = t[tile::kRuns];
+  geo.pad = t[tile::kPad];
+  geo.row_bytes = t[tile::kRowBytes];
+  geo.stage_rows = t[tile::kStageRows];
+  geo.slots = t[tile::kSlots];
+  geo.conv_passes = t[tile::kConvPasses];
+  geo.e_slot = t[tile::kESlot];
+  geo.rc_off = t[tile::kRcOff];
+  geo.rf_bytes = t[tile::kRfBytes];
+  geo.n_dblocks = t[tile::kBlocks];
+  geo.warps = warps;
+  geo.op = op;
+  geo.operand_image = operand_image;
+  using LL = long long;
+  const LL sz = static_cast<LL>(sizeof(T));
+  const LL skew_rows = dirs < n ? dirs : n;
+  const LL slot_area = static_cast<LL>(dirs) * geo.e_slot * sz;
+  const LL ring_area = static_cast<LL>(geo.slots) * geo.stage_rows *
+                       geo.row_bytes;
+  const LL need = skew::kBarrierBytes + geo.rf_bytes +
+                  (slot_area > ring_area ? slot_area : ring_area);
+  const bool conv_ok =
+      op != kConv ||
+      (geo.conv_passes >= 1 &&
+       static_cast<LL>(geo.conv_passes) * 32 * conv_run >= n &&
+       // the operand window: columns -(N-1) .. 32R*P of the slot
+       geo.e_slot >= n - 1 + 32 * conv_run * geo.conv_passes &&
+       // P > 1: each run writes rc behind the columns later runs read
+       (geo.conv_passes == 1 || geo.rc_off >= n - 1) &&
+       geo.rf_bytes >= static_cast<LL>(dirs + 1) * n * sz);
+  if (dirs < 1 || dirs > n + 1 || warps < 1 || geo.stage_rows < 1 ||
+      geo.stage_rows > n || geo.slots < 1 || geo.n_dblocks < 1 ||
+      items != kPipeItems<sizeof(T)> || warps > kPipeMaxWarps ||
+      n >= (1 << 16) || geo.runs < 1 ||
+      // every column lies in a run, and no window leaves its padded row
+      static_cast<LL>(geo.runs) * 32 * cols < n || geo.pad < 32 * cols - 1 ||
+      // a row lands at its source's address mod 16: up to 15 bytes of lead
+      geo.row_bytes % 16 != 0 ||
+      geo.row_bytes < (static_cast<LL>(n) + geo.pad) * sz + 15 ||
+      geo.rc_off < 0 || geo.e_slot < geo.rc_off + n + geo.pad ||
+      geo.rf_bytes < 0 || geo.rf_bytes % 16 != 0 || !conv_ok ||
+      static_cast<LL>(warps) * items < skew_rows * geo.runs ||
+      static_cast<LL>(geo.n_dblocks) * dirs < n + 1 ||
+      static_cast<LL>(geo.n_dblocks - 1) * dirs >= n + 1 ||
+      geo.slots > skew::kMaxSlots || (geo.slots < 2 && n > geo.stage_rows) ||
+      smem < need || static_cast<size_t>(smem) > skew::kSmemMax) {
+    // the producer pads stage k - 1 after issuing stage k, so a ring of
+    // one slot holds one stage only
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = static_cast<size_t>(smem);
+  switch (cols) {
+    case 1:
+      if (conv_run != skew::kConvRun<1>) break;
+      return launch<T, 1>(f, w, out, aux, batch, geo, bytes, s);
+    case 2:
+      if (conv_run != skew::kConvRun<2>) break;
+      return launch<T, 2>(f, w, out, aux, batch, geo, bytes, s);
+    case 4:
+      if (conv_run != skew::kConvRun<4>) break;
+      return launch<T, 4>(f, w, out, aux, batch, geo, bytes, s);
+    case 8:
+      if (conv_run != skew::kConvRun<8>) break;
+      return launch<T, 8>(f, w, out, aux, batch, geo, bytes, s);
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -422,6 +699,7 @@ int launch_tail(const void* rows, long long r_bstride, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 }  // namespace
 
 // dtype: 0 int32, 1 int64, 2 float32, 3 float64.  op: 0 none, 1 mul,
@@ -429,35 +707,33 @@ int launch_tail(const void* rows, long long r_bstride, int n_rows,
 // f_bstride; w is the operand -- (batch|1, n, n) images when
 // operand_image, else (batch|1, n+1, n) projections/weights -- with batch
 // stride w_bstride (0 for one shared operand), or null for op none.
-// out is (batch, n, n) and aux (batch, 2, n), both contiguous.  For conv,
-// tile_rows < m_block is allowed: rc then uses m_block rows of the tile
-// area.  Returns a cudaError_t (0 on success); the work is asynchronous
-// on `stream`.
+// out is (batch, n, n) and aux (batch, 2, n), both contiguous.  tile: the
+// tile::kCount fields of kernels/tuning.py:pipeline_tile.  Returns a
+// cudaError_t (0 on success); the work is asynchronous on `stream`.
 extern "C" int pipeline_launch(int dtype, const void* f, long long f_bstride,
                                const void* w, long long w_bstride, void* out,
-                               void* aux, int batch, int n, int m_block,
-                               int tile_rows, int op, int operand_image,
-                               void* stream) {
-  if (batch < 1 || n < 2 || m_block < 1 || m_block > n + 1 ||
-      tile_rows < 1 || tile_rows > n || op < kNone || op > kConv ||
+                               void* aux, int batch, int n, const int* tile,
+                               int op, int operand_image, void* stream) {
+  if (tile == nullptr || batch < 1 || n < 2 || op < kNone || op > kConv ||
       (op == kNone) != (w == nullptr) || (operand_image && op != kConv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<int32_t>(f, f_bstride, w, w_bstride, out, aux,
-                                   batch, n, m_block, tile_rows, op,
-                                   operand_image, s);
-    case 1: return launch<int64_t>(f, f_bstride, w, w_bstride, out, aux,
-                                   batch, n, m_block, tile_rows, op,
-                                   operand_image, s);
-    case 2: return launch<float>(f, f_bstride, w, w_bstride, out, aux,
-                                 batch, n, m_block, tile_rows, op,
-                                 operand_image, s);
-    case 3: return launch<double>(f, f_bstride, w, w_bstride, out, aux,
-                                  batch, n, m_block, tile_rows, op,
-                                  operand_image, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0:
+      return launch_checked<int32_t>(f, f_bstride, w, w_bstride, out, aux,
+                                     batch, n, tile, op, operand_image, s);
+    case 1:
+      return launch_checked<int64_t>(f, f_bstride, w, w_bstride, out, aux,
+                                     batch, n, tile, op, operand_image, s);
+    case 2:
+      return launch_checked<float>(f, f_bstride, w, w_bstride, out, aux, batch,
+                                   n, tile, op, operand_image, s);
+    case 3:
+      return launch_checked<double>(f, f_bstride, w, w_bstride, out, aux, batch,
+                                    n, tile, op, operand_image, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -504,6 +780,7 @@ extern "C" int pipeline_tail_launch(int dtype, const void* rows,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
 
 extern "C" const char* pipeline_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -22,10 +22,11 @@ kernel or raises (no fallback); on a CPU tensor it runs
 :func:`pipeline_plain`, the same function composed from K1's plain
 version and a chunked 1-D circular convolution, which is also what
 ``chip_smoke.py`` holds the kernel against on the card.  ``m_block``
-is the number of directions one thread block owns, capped by the
-shared memory a block holds (:func:`smem_blocks`); ``group`` and
-``lane_batch`` -- the TPU kernel's conv tap group and batch-in-lanes
-width -- are validated and change no output here.
+caps the number of directions one thread block owns
+(:func:`.tuning.pipeline_tile`: the registers and the 227 KB of shared
+memory of one block per SM set the rest); ``group`` and ``lane_batch``
+-- the TPU kernel's conv tap group and batch-in-lanes width -- are
+validated and change no output here.
 
 K3 (the same source, entry ``pipeline_tail_launch``) replaces the TPU
 kernel with ``source="proj"``, ``defer=True``: the tail of the mesh
@@ -35,7 +36,8 @@ direction is ``row_offset`` and returns the shard's uncorrected inverse
 ``Z`` and the op's rows 0 and N (``aux``, zero where the shard does not
 hold them); the correction waits for the sum over shards.
 :func:`pipeline_tail_raw` launches it (or, on a CPU tensor, runs
-:func:`pipeline_tail_plain`).
+:func:`pipeline_tail_plain`).  K3 keeps its own shared-memory budget
+(:data:`TAIL_SMEM_BUDGET`, :func:`tail_smem_rows`).
 """
 from __future__ import annotations
 
@@ -47,11 +49,13 @@ import torch
 
 from ..core.conv import circ_conv1d_exact
 from . import _build
-from .sfdprt import SMEM_BUDGET, _DTYPES, sfdprt_plain
+from .sfdprt import _DTYPES, sfdprt_plain, tile_array
+from .tuning import PipelineTile, pipeline_tile
 
-__all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_plain", "smem_blocks",
-           "pipeline_tail_raw", "pipeline_tail_plain", "tail_smem_rows",
-           "OP_LAUNCHES", "TAIL_OP_LAUNCHES", "reset_launch_counts"]
+__all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_launch_tile",
+           "pipeline_plain", "pipeline_tail_raw", "pipeline_tail_plain",
+           "tail_smem_rows", "TAIL_SMEM_BUDGET", "OP_LAUNCHES",
+           "TAIL_OP_LAUNCHES", "reset_launch_counts"]
 
 PIPELINE_OPS = ("none", "mul", "conv")
 _OPS = {"none": 0, "mul": 1, "conv": 2}
@@ -66,6 +70,10 @@ OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
 #: memsets and one kernel launch).  Only :func:`pipeline_tail_raw` adds.
 TAIL_OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
 
+#: shared memory one K3 block may take: two blocks fit on an H100 SM
+#: (228 KB of shared memory per SM, 1 KB of it reserved per block)
+TAIL_SMEM_BUDGET = 113 * 1024
+
 
 def reset_launch_counts() -> None:
     for counts in (OP_LAUNCHES, TAIL_OP_LAUNCHES):
@@ -73,44 +81,18 @@ def reset_launch_counts() -> None:
             counts[op] = 0
 
 
-def smem_blocks(n: int, itemsize: int, m_block: int,
-                op: str) -> tuple[int, int]:
-    """(directions per block, image rows per tile) that fit one block's
-    :data:`~repro_torch.kernels.sfdprt.SMEM_BUDGET`.
-
-    A block holds its directions' projections (``m_block`` rows of N;
-    twice that for ``conv``, whose operand projections sit beside them)
-    and a tile area that stages the image and, for ``conv``, then holds
-    the convolved rows.  ``m_block`` is capped at N+1 and at what fits;
-    the tile takes the rest, up to N rows.  Raises ValueError when not
-    even one direction row fits.
-    """
-    fit = SMEM_BUDGET // (n * itemsize)
-    bufs = 2 if op == "conv" else 1
-    if op == "conv":
-        mb = min(int(m_block), n + 1, fit // 3)   # rf, rg and rc rows
-    else:
-        mb = min(int(m_block), n + 1, fit - 1)    # rf plus one tile row
-    if mb < 1:
-        raise ValueError(
-            f"one direction row of N={n} {itemsize}-byte values (with its "
-            f"operand and tile rows for op={op!r}) does not fit the "
-            f"pipeline kernel's {SMEM_BUDGET}-byte shared-memory budget")
-    return mb, min(n, fit - bufs * mb)
-
-
 def tail_smem_rows(n: int, itemsize: int, m_block: int, rows: int,
                    op: str) -> int:
     """Rows of the shard one K3 block owns: at most ``m_block`` and
-    ``rows``, and no more than fit :data:`~repro_torch.kernels.sfdprt.
-    SMEM_BUDGET` (``conv`` holds rf, rg and rc rows; ``mul``/``none`` rf
-    alone).  Raises ValueError when not even one row fits."""
-    fit = SMEM_BUDGET // (n * itemsize) // (3 if op == "conv" else 1)
+    ``rows``, and no more than fit :data:`TAIL_SMEM_BUDGET` (``conv``
+    holds rf, rg and rc rows; ``mul``/``none`` rf alone).  Raises
+    ValueError when not even one row fits."""
+    fit = TAIL_SMEM_BUDGET // (n * itemsize) // (3 if op == "conv" else 1)
     if fit < 1:
         raise ValueError(
             f"one direction row of N={n} {itemsize}-byte values (with its "
             f"operand and result rows for op={op!r}) does not fit the "
-            f"pipeline tail kernel's {SMEM_BUDGET}-byte shared-memory "
+            f"pipeline tail kernel's {TAIL_SMEM_BUDGET}-byte shared-memory "
             f"budget")
     return max(1, min(int(m_block), int(rows), fit))
 
@@ -120,7 +102,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("pipeline")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pipeline_launch.argtypes = [i32, vp, i64, vp, i64, vp, vp, i32, i32,
-                                    i32, i32, i32, i32, vp]
+                                    vp, i32, i32, vp]
     lib.pipeline_launch.restype = i32
     lib.pipeline_tail_launch.argtypes = [i32, vp, i64, i32, vp, i64, vp, vp,
                                          i32, i32, i32, i32, i32, vp]
@@ -190,12 +172,28 @@ def pipeline_raw(f: torch.Tensor, operand: Optional[torch.Tensor] = None,
         return pipeline_plain(f, operand, op=op, operand_form=operand_form)
     if f.device.type != "cuda":
         raise RuntimeError(f"K2 runs on CUDA or CPU tensors, not {f.device}")
+    tile = pipeline_tile(f.shape[2], f.element_size(), m_block, op)
+    return pipeline_launch_tile(f, operand, tile, op=op,
+                                operand_form=operand_form)
+
+
+def pipeline_launch_tile(f: torch.Tensor, operand: Optional[torch.Tensor],
+                         tile: PipelineTile, *, op: str,
+                         operand_form: str = "proj"
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 over the CUDA stack ``f`` with an explicit ``tile``
+    (:func:`pipeline_raw` passes :func:`.tuning.pipeline_tile`'s;
+    ``chip_smoke.py`` times others).  The kernel checks the tile against
+    its own constants and budgets and the launch raises if it is
+    refused."""
+    _check(f, operand, op, operand_form, tile.m_block, 1, 1)
+    if f.device.type != "cuda":
+        raise RuntimeError(f"K2 launches on CUDA tensors, not {f.device}")
     b, _, n = f.shape
     out = torch.empty((b, n, n), dtype=f.dtype, device=f.device)
     aux = torch.empty((b, 2, n), dtype=f.dtype, device=f.device)
     if b == 0:
         return out, aux
-    mb, tile = smem_blocks(n, f.element_size(), m_block, op)
     lib = _lib()
     stream = torch.cuda.current_stream(f.device).cuda_stream
     w_ptr, w_stride = None, 0
@@ -205,12 +203,12 @@ def pipeline_raw(f: torch.Tensor, operand: Optional[torch.Tensor] = None,
             else 0
     err = lib.pipeline_launch(
         _DTYPES[f.dtype], f.data_ptr(), f.stride(0), w_ptr, w_stride,
-        out.data_ptr(), aux.data_ptr(), b, n, mb, tile, _OPS[op],
+        out.data_ptr(), aux.data_ptr(), b, n, tile_array(tile), _OPS[op],
         int(op == "conv" and operand_form == "image"), stream)
     if err != 0:
         raise RuntimeError(
             f"pipeline kernel launch failed (op={op}, {operand_form}, "
-            f"B={b}, N={n}, m_block={mb}, tile_rows={tile}): "
+            f"B={b}, N={n}, {tile}): "
             f"{lib.pipeline_error_string(err).decode()}")
     OP_LAUNCHES[op] += 1
     return out, aux

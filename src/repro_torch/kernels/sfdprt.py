@@ -16,11 +16,12 @@ kernel ``repro/kernels/sfdprt.py:_sfdprt_kernel`` in its three modes:
 or raises (no fallback); on a CPU tensor it runs :func:`sfdprt_plain`,
 the direct, chunked-over-directions gather-and-sum of the same modes,
 which is also what ``chip_smoke.py`` holds the kernel against on the
-card.  ``strip_rows`` and ``m_block`` are the kernel's tiles (the rows
-staged per step -- capped by the shared memory a block holds -- and the
-directions per thread block); they change no integer result.  With
-``stream_rows`` the raw functions below launch the streamed kernel
-(:mod:`.stream`, K4/K5) instead of K1.
+card.  ``strip_rows`` and ``m_block`` cap the kernel's tile
+(:func:`.tuning.skew_tile`: the rows of one shared-memory stage and the
+directions of one block, whose sums sit in registers); they change no
+integer result.  With ``stream_rows`` the raw functions below launch
+the streamed kernel (:mod:`.stream`, K4/K5) instead of K1, and so they
+do where N is too wide for K1's block (:func:`_skew`).
 """
 from __future__ import annotations
 
@@ -31,10 +32,11 @@ import torch
 
 from ..core.dprt import accum_dtype_for
 from . import _build
-from .stream import stream_raw
+from .stream import _sms, stream_raw
+from .tuning import SkewTile, skew_holds, skew_tile, stream_dma_holds
 
-__all__ = ["sfdprt", "sfdprt_plain", "skew_sum_raw", "dprt_raw",
-           "idprt_raw", "isfdprt_core", "smem_tile_rows", "MODE_LAUNCHES",
+__all__ = ["sfdprt", "sfdprt_launch_tile", "sfdprt_plain", "skew_sum_raw",
+           "dprt_raw", "idprt_raw", "isfdprt_core", "MODE_LAUNCHES",
            "reset_launch_counts"]
 
 #: kernel launches since the last reset (all modes); MODE_LAUNCHES splits
@@ -47,10 +49,6 @@ _MODES = {"core": 0, "forward": 1, "inverse": 2}
 _DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
            torch.float64: 3}
 
-#: shared memory one block may stage: two blocks fit on an H100 SM
-#: (228 KB of shared memory per SM, 1 KB of it reserved per block)
-SMEM_BUDGET = 113 * 1024
-
 #: elements one chunk of the plain version gathers at a time
 _PLAIN_CHUNK = 1 << 25
 
@@ -62,23 +60,12 @@ def reset_launch_counts() -> None:
         MODE_LAUNCHES[mode] = 0
 
 
-def smem_tile_rows(rows: int, n: int, itemsize: int, strip_rows: int) -> int:
-    """Rows the kernel stages per step: at most ``strip_rows``, at most
-    ``rows``, and no more than fit in :data:`SMEM_BUDGET`."""
-    fit = SMEM_BUDGET // (n * itemsize)
-    if fit < 1:
-        raise ValueError(
-            f"one row of N={n} {itemsize}-byte values does not fit the "
-            f"kernel's {SMEM_BUDGET}-byte shared-memory tile")
-    return max(1, min(int(strip_rows), int(rows), fit))
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sfdprt")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sfdprt_launch.argtypes = [i32, vp, i64, vp, vp, i32, i32, i32, i32,
-                                  i32, i32, i32, i32, i64, vp]
+                                  vp, i32, i32, i64, vp]
     lib.sfdprt_launch.restype = i32
     lib.sfdprt_error_string.argtypes = [i32]
     lib.sfdprt_error_string.restype = ctypes.c_char_p
@@ -124,7 +111,6 @@ def sfdprt(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
     CUDA operand launches the kernel on the current stream (raising if
     the launch is refused); a CPU operand takes :func:`sfdprt_plain`.
     """
-    global LAUNCHES
     _check(g, sign, mode, corr, strip_rows, m_block)
     if g.device.type == "cpu":
         return sfdprt_plain(g, sign=sign, mode=mode, corr=corr,
@@ -133,25 +119,49 @@ def sfdprt(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
         raise RuntimeError(f"K1 runs on CUDA or CPU tensors, not {g.device}")
     b, rows, n = g.shape
     out_rows = n + 1 if mode == "forward" else n
+    tile = skew_tile(n, rows, g.element_size(), strip_rows, m_block,
+                     out_rows, batch=max(1, b),
+                     sms=_sms(g.device.index or 0))
+    return sfdprt_launch_tile(g, tile, sign=sign, mode=mode, corr=corr,
+                              row_offset=row_offset)
+
+
+def sfdprt_launch_tile(g: torch.Tensor, tile: SkewTile, *, sign: int,
+                       mode: str, corr: torch.Tensor | None = None,
+                       row_offset: int = 0) -> torch.Tensor:
+    """Launch K1 over the CUDA operand ``g`` with an explicit ``tile``
+    (:func:`sfdprt` passes :func:`.tuning.skew_tile`'s; ``chip_smoke.py``
+    times others).  The kernel checks the tile against its own constants
+    and budgets and the launch raises if it is refused."""
+    global LAUNCHES
+    _check(g, sign, mode, corr, tile.stage_rows, tile.m_block)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"K1 launches on CUDA tensors, not {g.device}")
+    b, rows, n = g.shape
+    out_rows = n + 1 if mode == "forward" else n
     out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
     if b == 0:
         return out
-    tile = smem_tile_rows(rows, n, g.element_size(), strip_rows)
     lib = _lib()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.sfdprt_launch(
         _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
         None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
-        n, out_rows, int(m_block), tile, int(sign), _MODES[mode],
+        n, out_rows, tile_array(tile), int(sign), _MODES[mode],
         int(row_offset), stream)
     if err != 0:
         raise RuntimeError(
             f"sfdprt kernel launch failed ({mode}, B={b}, rows={rows}, "
-            f"N={n}, m_block={m_block}, tile_rows={tile}): "
-            f"{lib.sfdprt_error_string(err).decode()}")
+            f"N={n}, {tile}): {lib.sfdprt_error_string(err).decode()}")
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
     return out
+
+
+def tile_array(tile) -> ctypes.Array:
+    """A tile's fields, in its NamedTuple's order, as the C int array a
+    kernel's launch takes (its ``tile::`` enum names the same order)."""
+    return (ctypes.c_int * len(tile))(*(int(v) for v in tile))
 
 
 def sfdprt_plain(g: torch.Tensor, *, sign: int, mode: str,
@@ -204,7 +214,16 @@ def _skew(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
           m_block: int, corr=None, row_offset=None, stream_rows=None,
           stream_impl=None) -> torch.Tensor:
     """K1, or with ``stream_rows`` the streamed kernel K4/K5 (and then
-    K1 is not launched)."""
+    K1 is not launched).  Where K1 cannot hold one direction of N
+    (:func:`.tuning.skew_holds`: N > 14336 for 4-byte sums, 7168 for
+    8-byte ones) the operand streams through K5 in stages of at most
+    ``strip_rows`` rows, or through K4 where K5's ring cannot hold two
+    padded rows: the same function in one launch."""
+    n = g.shape[2]
+    if stream_rows is None and not skew_holds(n, g.element_size()):
+        stream_rows = strip_rows
+        stream_impl = ("dma" if stream_dma_holds(n, g.element_size())
+                       else "grid")
     if stream_rows is not None:
         return stream_raw(g, sign=sign, mode=mode,
                           stream_rows=int(stream_rows), m_block=m_block,

@@ -20,9 +20,17 @@ tile (K4/K5): how many directions' partial sums a block keeps in
 registers, how its warps split them, and how many rows each stage of
 its shared-memory ring holds.  ``stream_rows`` caps the stage height
 there, it does not set it, and a plan reports the knob unchanged.
+
+:func:`skew_tile` (K1) and :func:`pipeline_tile` (K2) are the Hopper
+resolution of the register-tiled skew-sum the two kernels share
+(``csrc/skew_tile.cuh``): the columns a lane holds per item, the
+directions per block and its warps, the stage height and ring depth,
+and for K2 the layout of its shared memory.  ``strip_rows`` caps K1's
+stage height and ``m_block`` caps the directions per block of both.
 """
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import NamedTuple
@@ -31,7 +39,12 @@ __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "wasted_direction_rows", "PIPELINE_TUNE", "pipeline_block_spec",
            "resolve_pipeline_blocks", "check_strip_knobs",
            "STREAM_SMEM_BUDGET", "STREAM_SHAPES", "STREAM_WARPS",
-           "StreamTile", "stream_row_bytes", "stream_smem", "stream_tile"]
+           "StreamTile", "stream_row_bytes", "stream_smem", "stream_tile",
+           "stream_dma_holds",
+           "SKEW_ITEMS", "SKEW_COLS", "SKEW_WARPS", "SKEW_SMEM_BUDGET",
+           "PIPE_WARPS", "PIPE_ITEMS", "SkewTile", "skew_cols", "conv_run",
+           "skew_row_bytes", "skew_holds", "skew_geometry", "skew_tile",
+           "PipelineTile", "pipeline_geometry", "pipeline_tile"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
@@ -186,6 +199,14 @@ def stream_smem(n: int, itemsize: int, stage_rows: int, slots: int) -> int:
             + slots * stage_rows * stream_row_bytes(n, itemsize))
 
 
+def stream_dma_holds(n: int, itemsize: int) -> bool:
+    """Whether K5's ring holds two padded rows of N, as it must to stream
+    more than one stage (N <= 28613 for 4-byte values, 14291 for 8-byte
+    ones); K4 streams through one stage."""
+    return ((STREAM_SMEM_BUDGET - STREAM_BARRIER_BYTES)
+            // stream_row_bytes(n, itemsize) >= 2)
+
+
 def _direction_block(dmax: int, out_rows: int, batch: int, sms: int) -> int:
     """The directions per block in [ceil(3*dmax/4), dmax] that finish the
     blocks in the least time, as waves of ``sms`` blocks that each cost
@@ -244,6 +265,298 @@ def stream_tile(n: int, rows: int, itemsize: int, stream_rows: int,
                       pad=32 * cols - 1, row_bytes=row,
                       smem=stream_smem(n, itemsize, h, slots),
                       blocks=-(-int(out_rows) // d))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on Hopper: the register-tiled skew-sum (csrc/skew_tile.cuh)
+# ---------------------------------------------------------------------------
+#: items a warp holds per accumulator width in bytes (``kItems``)
+SKEW_ITEMS = {4: 8, 8: 4}
+#: the columns K a lane may hold per item: the kernels' instantiations
+SKEW_COLS = (1, 2, 4, 8)
+#: K1: consumer warps per block at most (``csrc/sfdprt.cu: kMaxWarps``);
+#: with the producer 256 threads, two blocks of which leave ptxas 128
+#: registers a thread
+SKEW_WARPS = 7
+#: K1: shared memory one block's ring may take, so that three blocks
+#: share an SM (228 KB, 1 KB of it reserved per block); a ring of two
+#: rows that does not fit takes a block's whole 227 KB instead
+SKEW_SMEM_BUDGET = 72 * 1024
+#: K1 and K2: the stages a ring is sized for: at radon_251 two tall
+#: stages run as fast as three shorter ones and faster than four
+#: (``chip_smoke.py``'s sweep of K1's stage shape; ``PERF.md``)
+SKEW_TARGET_SLOTS = 2
+#: K1: what streaming its rows costs a block beside its directions, in
+#: units of one direction (the waves choice of directions per block): at
+#: radon_251 a block's pass over the image costs as much as some 50-70
+#: directions (``chip_smoke.py``'s sweep of D; ``PERF.md``)
+SKEW_BLOCK_COST = 64
+#: K2: consumer warps per block at most (``csrc/pipeline.cu:
+#: kPipeMaxWarps``); with the producer 12 warps, one block per SM, which
+#: leaves ptxas 168 registers a thread (13 to 16 warps leave 128, and
+#: the 32-bit instantiations spilled there)
+PIPE_WARPS = 11
+PIPE_THREAD_REGS = 168
+#: K2: items a warp holds per accumulator width (``kPipeItems``): six for
+#: 4-byte sums, whose 64 accumulators at eight spilled at 168 registers
+PIPE_ITEMS = {4: 6, 8: 4}
+#: per SM: registers, shared memory, threads; and the registers a K1
+#: thread takes at most under its launch bounds
+SM_REGS = 65536
+SM_SMEM = 228 * 1024
+SM_THREADS = 2048
+MAX_THREAD_REGS = 128
+
+
+def skew_cols(n: int) -> int:
+    """The columns K a lane holds per item at N: the one of
+    :data:`SKEW_COLS` whose runs of ``32*K`` columns cost the fewest
+    instructions per row, ``runs * (2K + 3)`` (K loads and adds per item
+    plus its window step); the larger K on a tie.  N = 251: K = 8, one run
+    of 256 columns."""
+    def cost(k):
+        return -(-n // (32 * k)) * (2 * k + 3), -k
+    return min(SKEW_COLS, key=cost)
+
+
+def conv_run(cols: int) -> int:
+    """R, the consecutive conv outputs a lane owns in K2
+    (``kConvRun``): odd, so that the lanes' loads at stride R hit 32
+    banks, and >= ``cols``, so that a padded rc row fits its slot."""
+    return 1 if cols == 1 else cols + 1
+
+
+def skew_row_bytes(n: int, cols: int, itemsize: int) -> int:
+    """Bytes of one staged row's slot in K1's and K2's rings: the row, its
+    padding of ``32*cols - 1`` columns, and up to 15 bytes of lead that
+    put it at its source's address mod 16."""
+    return _align16((n + 32 * cols - 1) * itemsize) + 16
+
+
+def _ring(fit: int, rows: int, cap: int) -> tuple[int, int]:
+    """(stage rows, slots) of a ring in ``fit`` padded row slots for
+    ``rows`` rows: stages of at most ``cap`` rows sized for
+    :data:`SKEW_TARGET_SLOTS` of them, as many as fit up to
+    :data:`STREAM_MAX_SLOTS` and the stage count, and two at least when
+    there is more than one stage (the producer pads a stage after it
+    issues the next)."""
+    h = max(1, min(cap, rows, fit // SKEW_TARGET_SLOTS))
+    stages = -(-rows // h)
+    slots = min(STREAM_MAX_SLOTS, stages, max(fit // h, 2))
+    return h, slots
+
+
+class SkewTile(NamedTuple):
+    """K1's launch geometry (``csrc/sfdprt.cu``).  The kernel takes every
+    field as given and only checks it against its compile-time constants
+    and budgets."""
+    stage_rows: int     # rows per shared-memory stage (<= strip_rows)
+    slots: int          # stages in the ring
+    m_block: int        # D: directions per block (<= m_block)
+    cols: int           # columns a lane holds per item
+    items: int          # items a consumer warp holds
+    warps: int          # consumer warps per block (plus one producer)
+    runs: int           # column runs of 32*cols per direction
+    pad: int            # padding columns after each staged row
+    row_bytes: int      # bytes of one padded row slot (16-multiple)
+    smem: int           # dynamic shared memory of one block
+    blocks: int         # blocks per image
+    per_sm: int         # blocks an SM holds at once (registers, smem)
+
+
+def _skew_warps(d: int, n: int, runs: int, items: int) -> int:
+    return max(1, -(-min(d, n) * runs // items))
+
+
+def _per_sm(warps: int, smem: int) -> int:
+    threads = (warps + 1) * 32
+    return max(1, min(SM_REGS // (threads * MAX_THREAD_REGS),
+                      SM_SMEM // (smem + 1024), SM_THREADS // threads))
+
+
+def _skew_fit(n: int, itemsize: int) -> int:
+    """Padded rows of N that K1's ring may hold: those of
+    :data:`SKEW_SMEM_BUDGET` when two fit there, else of a whole block's
+    227 KB."""
+    row = skew_row_bytes(n, skew_cols(n), itemsize)
+    fit = (SKEW_SMEM_BUDGET - STREAM_BARRIER_BYTES) // row
+    if fit < 2:
+        fit = (STREAM_SMEM_BUDGET - STREAM_BARRIER_BYTES) // row
+    return fit
+
+
+def skew_holds(n: int, itemsize: int) -> bool:
+    """Whether K1 holds one direction of N ``itemsize``-byte sums in the
+    registers of a block (:data:`SKEW_WARPS` warps of ``items`` items of
+    ``32*K`` columns: N <= 14336 for 4-byte sums, 7168 for 8-byte ones)
+    and a ring of two of its padded rows in shared memory.  Where it does
+    not, the raw functions of ``kernels/sfdprt.py`` launch the streamed
+    kernel K5, whose block holds 37440 / 20160 columns."""
+    runs = -(-n // (32 * skew_cols(n)))
+    return (runs <= SKEW_WARPS * SKEW_ITEMS[itemsize]
+            and _skew_fit(n, itemsize) >= 2)
+
+
+def skew_geometry(n: int, itemsize: int, out_rows: int, m_block: int,
+                  stage_rows: int, slots: int) -> SkewTile:
+    """K1's tile with D = ``m_block`` directions per block and a ring of
+    ``slots`` stages of ``stage_rows`` rows: every other field follows
+    from these (:func:`skew_tile` chooses them; ``chip_smoke.py``'s sweeps
+    build their tiles here)."""
+    cols = skew_cols(n)
+    items = SKEW_ITEMS[itemsize]
+    runs = -(-n // (32 * cols))
+    row = skew_row_bytes(n, cols, itemsize)
+    d = int(m_block)
+    warps = _skew_warps(d, n, runs, items)
+    smem = STREAM_BARRIER_BYTES + int(slots) * int(stage_rows) * row
+    return SkewTile(stage_rows=int(stage_rows), slots=int(slots), m_block=d,
+                    cols=cols, items=items, warps=warps, runs=runs,
+                    pad=32 * cols - 1, row_bytes=row, smem=smem,
+                    blocks=-(-int(out_rows) // d),
+                    per_sm=_per_sm(warps, smem))
+
+
+@functools.lru_cache(maxsize=1024)
+def skew_tile(n: int, rows: int, itemsize: int, strip_rows: int,
+              m_block: int, out_rows: int, batch: int = 1,
+              sms: int = H100_SMS) -> SkewTile:
+    """K1's geometry (:class:`SkewTile`) for ``batch`` operands of
+    (rows, N) with ``out_rows`` output rows.
+
+    K from N (:func:`skew_cols`).  Shared memory holds the ring: the
+    stage height fits :data:`SKEW_TARGET_SLOTS` stages in
+    :data:`SKEW_SMEM_BUDGET`, capped by ``strip_rows`` and ``rows``.
+    Registers bound the directions per block D: at most
+    :data:`SKEW_WARPS` consumer warps of ``items`` items of ``32*K``
+    columns, capped by ``m_block`` and the output rows; D is then the
+    value in [ceil(that / 2), that] whose blocks finish in the least
+    time, as waves (at least one) of ``sms`` SMs times the blocks an SM
+    holds, each costing :data:`SKEW_BLOCK_COST` plus one per direction
+    (the larger on a tie): a large batch takes the largest D, a batch of
+    one image spreads over more, smaller blocks.
+    Raises ValueError where K1 cannot hold one direction
+    (:func:`skew_holds`).  Integer results depend on none of it.  Cached:
+    every launch asks, and the search over D would otherwise cost a
+    launch of one image more than the kernel."""
+    if not skew_holds(n, itemsize):
+        cols = skew_cols(n)
+        raise ValueError(
+            f"K1 cannot hold one direction of N={n} {itemsize}-byte sums in "
+            f"the registers of one block ({SKEW_WARPS} warps x "
+            f"{SKEW_ITEMS[itemsize]} items x {32 * cols} columns) and two "
+            f"padded rows in {STREAM_SMEM_BUDGET}-byte shared memory; the "
+            f"raw functions stream such N through K5")
+    cols = skew_cols(n)
+    items = SKEW_ITEMS[itemsize]
+    runs = -(-n // (32 * cols))
+    row = skew_row_bytes(n, cols, itemsize)
+    h, slots = _ring(_skew_fit(n, itemsize), int(rows),
+                     max(1, int(strip_rows)))
+    smem = STREAM_BARRIER_BYTES + slots * h * row
+    dmax = max(1, min(int(m_block), int(out_rows),
+                      SKEW_WARPS * items // runs))
+    best, best_cost = dmax, None
+    for d in range(dmax, max(1, -(-dmax // 2)) - 1, -1):
+        per_sm = _per_sm(_skew_warps(d, n, runs, items), smem)
+        waves = max(1.0, int(batch) * -(-int(out_rows) // d)
+                    / (sms * per_sm))
+        cost = waves * (SKEW_BLOCK_COST + d)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = d, cost
+    return skew_geometry(n, itemsize, out_rows, best, h, slots)
+
+
+class PipelineTile(NamedTuple):
+    """K2's launch geometry and shared-memory layout
+    (``csrc/pipeline.cu``).  The kernel takes every field as given and
+    only checks it against its compile-time constants and budgets."""
+    stage_rows: int     # rows per stage of the image's ring
+    slots: int          # stages in the ring
+    m_block: int        # D: directions per block (<= m_block)
+    cols: int           # columns a lane holds per item (skew-sums)
+    items: int          # items a consumer warp holds
+    warps: int          # consumer warps per block (plus one producer)
+    runs: int           # column runs of 32*cols per direction
+    pad: int            # padding columns of a staged or rc row
+    row_bytes: int      # bytes of one padded staged row (16-multiple)
+    conv_run: int       # R: consecutive conv outputs a lane owns
+    conv_passes: int    # P: runs of 32*R outputs per direction
+    e_slot: int         # elements of one direction's slot
+    rc_off: int         # where a direction's rc row starts in its slot
+    rf_bytes: int       # bytes of the rf rows (conv), else 0
+    smem: int           # dynamic shared memory of one block
+    blocks: int         # blocks per image
+
+
+def pipeline_geometry(n: int, itemsize: int, op: str, m_block: int,
+                      stage_rows: int | None = None) -> PipelineTile:
+    """K2's tile with D = ``m_block`` directions per block, its ring's
+    stages capped at ``stage_rows`` rows (N by default): the layout of
+    its shared memory -- the barriers, the rf rows (conv: D + 1 of N),
+    then the larger of the D direction slots and the ring of image stages
+    that aliases them.  A conv slot holds its direction's operand row
+    extended to columns -(N-1) .. 32R*P, then its padded rc row (for P > 1
+    runs behind the operand's columns, which later runs still read); a
+    mul or none slot holds the padded rc row.  :func:`pipeline_tile`
+    chooses D; ``chip_smoke.py``'s edges and sweeps build their tiles
+    here."""
+    cols = skew_cols(n)
+    items = PIPE_ITEMS[itemsize]
+    runs = -(-n // (32 * cols))
+    d = int(m_block)
+    pad = 32 * cols - 1
+    r = conv_run(cols)
+    passes = -(-n // (32 * r))
+    if op == "conv":
+        reach = 32 * r * passes
+        e_slot = n - 1 + (reach if passes == 1 else max(reach, n + pad))
+        rc_off = 0 if passes == 1 else n - 1
+        rf = _align16((d + 1) * n * itemsize)
+    else:
+        e_slot, rc_off, rf = n + pad, 0, 0
+    area = _align16(d * e_slot * itemsize)
+    row = skew_row_bytes(n, cols, itemsize)
+    h, slots = _ring(area // row, n, n if stage_rows is None
+                     else int(stage_rows))
+    return PipelineTile(stage_rows=h, slots=slots, m_block=d, cols=cols,
+                        items=items, warps=_skew_warps(d, n, runs, items),
+                        runs=runs, pad=pad, row_bytes=row, conv_run=r,
+                        conv_passes=passes, e_slot=e_slot, rc_off=rc_off,
+                        rf_bytes=rf,
+                        smem=STREAM_BARRIER_BYTES + rf + max(
+                            area, slots * h * row),
+                        blocks=-(-(n + 1) // d))
+
+
+@functools.lru_cache(maxsize=1024)
+def pipeline_tile(n: int, itemsize: int, m_block: int,
+                  op: str) -> PipelineTile:
+    """K2's geometry (:class:`PipelineTile`, laid out by
+    :func:`pipeline_geometry`) for ``op`` at N.
+
+    One block per SM.  K from N (:func:`skew_cols`), R from K
+    (:func:`conv_run`).  D is the most directions that ``m_block``, N + 1,
+    the registers (:data:`PIPE_WARPS` consumer warps of
+    :data:`PIPE_ITEMS` items) and the 227 KB of shared memory allow, then
+    spread evenly over the blocks of an image.  Raises ValueError when
+    not one direction fits.  Integer results depend on none of it."""
+    cols = skew_cols(n)
+    items = PIPE_ITEMS[itemsize]
+    runs = -(-n // (32 * cols))
+    d = min(int(m_block), n + 1, PIPE_WARPS * items // runs)
+    while d >= 1 and pipeline_geometry(n, itemsize, op,
+                                       d).smem > STREAM_SMEM_BUDGET:
+        d -= 1
+    if d < 1:
+        raise ValueError(
+            f"one direction of N={n} {itemsize}-byte values (with its "
+            f"operand and padded rows for op={op!r}) does not fit the "
+            f"pipeline kernel's registers ({PIPE_WARPS} warps x {items} "
+            f"items x {32 * cols} columns) and {STREAM_SMEM_BUDGET}-byte "
+            f"shared memory")
+    blocks = -(-(n + 1) // d)
+    return pipeline_geometry(n, itemsize, op, -(-(n + 1) // blocks))
 
 
 def wasted_direction_rows(n: int, m_block: int, forward: bool = True) -> int:

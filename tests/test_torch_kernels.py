@@ -206,10 +206,73 @@ def test_resolve_blocks_rejects_like_reference():
 
 
 def test_smem_tile_rows_caps_the_staged_strip():
-    # a whole 251 x 251 int32 image does not fit one block's shared memory
-    assert S.smem_tile_rows(251, 251, 4, 251) * 251 * 4 <= S.SMEM_BUDGET
-    assert S.smem_tile_rows(251, 251, 4, 16) == 16
-    assert S.smem_tile_rows(3, 5, 4, 16) == 3
+    """K1's stage of padded rows: a whole 251 x 251 int32 image does not
+    fit a block's share of the SM's shared memory, so it streams through
+    a ring of stages; ``strip_rows`` and the operand's rows cap a stage."""
+    t = TT.skew_tile(251, 251, 4, 251, 32, 252, batch=256)
+    assert (t.stage_rows, t.slots) == (17, 2)
+    assert t.smem == 192 + t.slots * t.stage_rows * t.row_bytes
+    assert t.smem <= TT.SKEW_SMEM_BUDGET
+    assert TT.skew_tile(251, 251, 4, 8, 32, 252).stage_rows == 8
+    assert TT.skew_tile(5, 3, 4, 16, 8, 6).stage_rows == 3
+
+
+def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit to ``csrc/skew_tile.cuh``, which K1 and K2 include, gives
+    both libraries a new build path (a stale ``.so`` is never reused);
+    a library that does not include it is rebuilt too, as every header
+    joins every key."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    for src in ("sfdprt.cu", "pipeline.cu"):
+        assert '#include "skew_tile.cuh"' in (csrc / src).read_text()
+    before = {name: _build._lib_path(name) for name in _build.LIBRARIES}
+    assert before == {name: _build._lib_path(name)
+                      for name in _build.LIBRARIES}
+    header = csrc / "skew_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._lib_path(name) for name in _build.LIBRARIES}
+    for name in _build.LIBRARIES:
+        assert after[name] != before[name], name
+        assert after[name].parent == before[name].parent
+
+
+@pytest.mark.parametrize("n,dtype,route", [
+    (14327, torch.int32, "k1"), (14341, torch.int32, "dma"),
+    (28619, torch.int32, "grid"), (7159, torch.int64, "k1"),
+    (7177, torch.int64, "dma"), (14293, torch.int64, "grid")])
+def test_raw_functions_stream_n_too_wide_for_k1(monkeypatch, n, dtype,
+                                                route):
+    """Where K1 cannot hold one direction of N in a block (N > 14336 for
+    int32 sums, 7168 for int64), the raw functions stream the operand
+    through K5 in stages of at most ``strip_rows`` rows, and through K4
+    where K5's ring cannot hold two padded rows: every mode, as K1 ran
+    up to 28928 / 14464 before its register tile."""
+    calls = []
+
+    def k1(g, **kw):
+        calls.append(("k1", kw))
+        return "k1"
+
+    def streamed(g, **kw):
+        calls.append((kw["stream_impl"], kw))
+        return "streamed"
+
+    monkeypatch.setattr(S, "sfdprt", k1)
+    monkeypatch.setattr(S, "stream_raw", streamed)
+    g = torch.zeros((1, 2, n), dtype=dtype)
+    S.dprt_raw(g, strip_rows=5, row_offset=3)
+    S.skew_sum_raw(g, -1, strip_rows=5, row_offset=n - 1)
+    S._skew(g, sign=-1, mode="inverse", strip_rows=5, m_block=8,
+            corr=torch.zeros((1, n), dtype=dtype))
+    assert [c[0] for c in calls] == [route] * 3
+    assert [c[1]["mode"] for c in calls] == ["forward", "core", "inverse"]
+    if route != "k1":
+        assert all(c[1]["stream_rows"] == 5 for c in calls)
+    assert TT.skew_holds(n, dtype.itemsize) == (route == "k1")
 
 
 # ---------------------------------------------------------------------------

@@ -197,19 +197,33 @@ def test_pipeline_tuning_matches_reference():
 
 
 def test_smem_blocks_cap_m_block_and_reject_rows_that_do_not_fit():
-    # the main path: conv holds rf, rg and rc rows; mul/none rf and a tile
-    assert P.smem_blocks(251, 4, 64, "conv") == (38, 39)
-    assert P.smem_blocks(251, 4, 64, "mul") == (64, 51)
-    assert P.smem_blocks(251, 8, 64, "conv") == (19, 19)
-    assert P.smem_blocks(5, 4, 100, "none") == (6, 5)    # capped at N+1
+    """K2's tile (``tuning.pipeline_tile``; the name dates from the
+    shared-memory-only ``smem_blocks``): at the main path conv holds the
+    rf rows and each direction's operand window, then its padded rc row;
+    mul/none the padded rc rows.  Directions per block, spread evenly
+    over the blocks of an image, and the shared bytes of one block per
+    SM.  K3 keeps its own 113 KB budget (``tail_smem_rows``)."""
+    def tile(n, itemsize, m_block, op):
+        t = TT.pipeline_tile(n, itemsize, m_block, op)
+        return t.m_block, t.blocks, t.smem
+    assert tile(251, 4, 64, "conv") == (63, 4, 200032)
+    assert tile(251, 4, 64, "mul") == (63, 4, 127712)
+    assert tile(251, 8, 64, "conv") == (36, 7, 229440)
+    assert tile(251, 4, 20, "none") == (20, 13, 40672)  # m_block caps D
+    assert tile(5, 4, 100, "none") == (6, 1, 1056)       # capped at N+1
     with pytest.raises(ValueError, match="does not fit"):
-        P.smem_blocks(5003, 8, 64, "conv")
+        TT.pipeline_tile(40009, 8, 64, "conv")
+    assert P.TAIL_SMEM_BUDGET == 113 * 1024
+    assert P.tail_smem_rows(251, 4, 64, 252, "conv") == 38
+    assert P.tail_smem_rows(251, 4, 64, 63, "mul") == 63
+    with pytest.raises(ValueError, match="does not fit"):
+        P.tail_smem_rows(40009, 8, 64, 4, "conv")
 
 
-def test_pipeline_tail_is_not_ported_yet():
-    """K3 is ported now (the name dates from when the tail raised): on
-    CPU tensors ``pipeline_tail_cuda`` runs its plain version, whose
-    shard partials, summed and corrected, give the fused pipeline."""
+def test_pipeline_tail_shard_partials_rebuild_the_pipeline():
+    """On CPU tensors ``pipeline_tail_cuda`` (K3) runs its plain
+    version, whose shard partials, summed and corrected, give the fused
+    pipeline."""
     rng = np.random.default_rng(11)
     n, b = 13, 3
     f = torch.from_numpy(rng.integers(-50, 50, (b, n, n)).astype(np.int32))
