@@ -33,12 +33,13 @@ counts set to 0 just before it and read just after:
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
-instantiation of K1, K2 or the streamed kernel, and times every kernel
-against its bound: K1, K2 and the streamed kernel also with their
-design, registers and SASS instructions per add (K2's conv window: per
-multiply-add); K1 also for one image (``Conv2D``'s kernel) and by
-directions per block, K2 by m_block (ms against blocks per image), the
-streamed kernel by directions per block.
+instantiation of K1, K2, K3 or the streamed kernel, and times every
+kernel against its bound, also with its design, registers and SASS
+instructions per add (the conv window of K2 and K3: per multiply-add);
+K1 also for one image (``Conv2D``'s kernel) and by directions per
+block, K2 by m_block and K3 by directions per block (ms against blocks
+per image), the streamed kernel by directions per block; and profiles
+one ``Conv2D`` call of the pipeline path and one of the mesh path.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
@@ -161,8 +162,8 @@ _KERNELS = ("stream_kernel", "sfdprt_kernel", "pipeline_kernel",
 
 def _instance(mangled: str):
     """(kernel, dtype name, variant) of a mangled kernel instantiation --
-    variant "grid"/"dma" for the streamed kernel, "K=<cols>" for K1 and
-    K2, "" otherwise -- else None."""
+    variant "grid"/"dma" for the streamed kernel, "K=<cols>" for K1, K2
+    and K3, "" otherwise -- else None."""
     m = re.search(r"(" + "|".join(_KERNELS) + r")I([ilfd])(?:Li(\d+)E)?",
                   mangled)
     if m is None:
@@ -224,56 +225,71 @@ def sass_hot_blocks(lib_path) -> dict:
     loads: its instructions, its LDS count and instructions per LDS (each
     LDS of a skew-sum's inner loop feeds one add, so this is the loop's
     instructions per add); and, where a block does multiply-adds, the one
-    with the most (``mad_block``, K2 only: instructions per multiply-add
-    of its conv window, counted as plain IMAD/FFMA/DFMA, so meaningful for
-    the 32-bit types).  Blocks split at labels and after branches."""
+    with the most (``mad_block``, K2 and K3: instructions per multiply-add
+    of their conv window, counted as plain IMAD/FFMA/DFMA, so meaningful
+    for the 32-bit types).  Blocks split at labels, at branch targets
+    (cuobjdump labels only some of them: a loop's back edge may jump to
+    an unlabelled address) and after branches."""
     import os
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
          str(lib_path)], capture_output=True, text=True, timeout=300,
         check=True).stdout
-    out, name, blocks = {}, None, []
+    out = {}
 
-    def fresh():
-        return {"instructions": 0, "lds": 0, "mads": 0}
-
-    def close():
-        if name is None or not blocks:
+    def close(name, rows):
+        """rows: (address or None for a label, opcode, branch target)."""
+        if name is None:
             return
-        best = max(blocks, key=lambda blk: blk["lds"])
+        targets = {t for _, _, t in rows if t is not None}
+        blocks, blk = [], None
+        for addr, op, _ in rows:
+            if blk is None or addr is None or addr in targets:
+                blk = {"instructions": 0, "lds": 0, "mads": 0}
+                blocks.append(blk)
+            if addr is None:
+                continue
+            blk["instructions"] += 1
+            blk["lds"] += op.startswith("LDS")
+            blk["mads"] += op in _MAD_OPS
+            if op.split(".")[0] in ("BRA", "EXIT", "RET", "JMP", "BRX"):
+                blk = None
+        if not blocks:
+            return
+        best = max(blocks, key=lambda b: b["lds"])
         entry = {"instructions": best["instructions"], "lds": best["lds"]}
         if best["lds"]:
             entry["per_lds"] = best["instructions"] / best["lds"]
-        mad = max(blocks, key=lambda blk: blk["mads"])
-        if mad["mads"] and name[0] == "pipeline_kernel":
+        mad = max(blocks, key=lambda b: b["mads"])
+        if mad["mads"] and name[0] in ("pipeline_kernel",
+                                       "pipeline_tail_kernel"):
             entry["mad_block"] = {
                 "instructions": mad["instructions"], "mads": mad["mads"],
                 "per_mad": mad["instructions"] / mad["mads"]}
         out[name] = entry
 
+    name, rows = None, []
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            close()
-            name, blocks = _instance(m.group(1)), [fresh()]
+            close(name, rows)
+            name, rows = _instance(m.group(1)), []
             continue
         if name is None:
             continue
         if re.match(r"\s*\.L_\w+:", line):
-            blocks.append(fresh())
+            rows.append((None, "", None))
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if not m:
             continue
-        op = re.sub(r"^@!?U?P\w+\s+", "", m.group(1).strip()).split()[0]
-        blk = blocks[-1]
-        blk["instructions"] += 1
-        blk["lds"] += op.startswith("LDS")
-        blk["mads"] += op in _MAD_OPS
-        if op.split(".")[0] in ("BRA", "EXIT", "RET", "JMP", "BRX"):
-            blocks.append(fresh())
-    close()
+        op = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip()).split()[0]
+        t = re.search(r"\bBRA(?:\.\w+)*\s+(?:\w+,\s*)?0x([0-9a-f]+)",
+                      m.group(2))
+        rows.append((int(m.group(1), 16), op,
+                     int(t.group(1), 16) if t else None))
+    close(name, rows)
     return out
 
 
@@ -893,23 +909,30 @@ def pipeline_timing_phase(launches: dict, worst: dict) -> list:
     return rows
 
 
-def pipeline_profile_phase() -> None:
+def pipeline_profile_phase(mesh: bool = False) -> None:
     """Where one radon_251 Conv2D call's device time goes, by kernel
     (torch.profiler over CONV_ITERS calls), and the device's busy share
-    of the host wall time around them."""
+    of the host wall time around them; ``mesh``: the Conv2D on the
+    (1, 1) mesh of the mesh path (K1 and K3)."""
+    import contextlib
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import radon
     from repro_torch.configs.radon_251 import config
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.launch.mesh import make_local_mesh
 
     cfg = config()
     n, b = cfg.n, cfg.batch
     dev = torch.device("cuda")
     imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
-    conv = radon.Conv2D(tuple(imgs.shape),
-                        torch.ones((3, 3), dtype=torch.int32, device=dev))
+    where = (radon.config(mesh=make_local_mesh(1, 1)) if mesh
+             else contextlib.nullcontext())
+    with where:
+        conv = radon.Conv2D(tuple(imgs.shape),
+                            torch.ones((3, 3), dtype=torch.int32,
+                                       device=dev))
     conv(imgs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -935,7 +958,8 @@ def pipeline_profile_phase() -> None:
         log("profile: the profiler saw no device time (not measured)")
         return
     busy = sum(per_call.values()) * CONV_ITERS / wall_ms
-    log(f"profile: one Conv2D call (N={n} B={b} int32), device ms by "
+    log(f"profile: one {'mesh ' if mesh else ''}Conv2D call (N={n} B={b} "
+        f"int32), device ms by "
         f"kernel {json.dumps(per_call)}; host wall {wall_ms / CONV_ITERS:.4f}"
         f" ms per call, device busy share {busy:.4f} (idle "
         f"{1 - busy:.4f})")
@@ -1567,7 +1591,13 @@ def tail_kernel_phase() -> dict:
     0, a middle shard and the shard that holds direction N and the
     padding past it, batch 1 and 3, the table's and an awkward m_block,
     and int32 values whose sums and products overflow.  Five shards put
-    padding rows past direction N into the last shard at N = 251 too."""
+    padding rows past direction N into the last shard at N = 251 too.
+    The register tile's edges (:func:`tail_edge_shards` at N = 31, 61
+    and 257 -- two conv runs of 32R there -- for the four dtypes, float64
+    too): a shard of padding only, one that straddles N, a row_offset
+    that is no multiple of D, and D = 1; at radon_251 tiles of the most
+    directions that fit (blocks of unequal D).  Spills are checked with
+    K2's."""
     import numpy as np
     import torch
     from repro_torch.kernels import pipeline as P
@@ -1578,11 +1608,15 @@ def tail_kernel_phase() -> dict:
     worst = {}
     cases = 0
 
-    def run(label, rows, w, op, off, mb):
+    def run(label, rows, w, op, off, mb, tile=None):
         nonlocal cases
         n = rows.shape[-1]
-        got, got_aux = P.pipeline_tail_raw(rows, w, op=op, row_offset=off,
-                                           m_block=mb)
+        if tile is None:
+            got, got_aux = P.pipeline_tail_raw(rows, w, op=op,
+                                               row_offset=off, m_block=mb)
+        else:
+            got, got_aux = P.pipeline_tail_launch_tile(rows, w, tile, op=op,
+                                                       row_offset=off)
         torch.cuda.synchronize()
         want, want_aux = P.pipeline_tail_plain(rows, w, op=op,
                                                row_offset=off)
@@ -1591,13 +1625,31 @@ def tail_kernel_phase() -> dict:
         if rows.dtype.is_floating_point:
             # K2's tolerance holds for the pipeline's output, which is
             # (Z - S + c) / N; K3 returns Z itself, so N times it
-            aux_tol = PIPE_F32_REL * tail_rc_scale(rows, w, op, off, n)
+            rel = (PIPE_F64_REL if rows.dtype == torch.float64
+                   else PIPE_F32_REL)
+            aux_tol = rel * tail_rc_scale(rows, w, op, off, n)
             tol = n * aux_tol
         err = max(check_close(f"K3 {label} out", got, want, n, tol),
                   check_close(f"K3 {label} aux", got_aux, want_aux, n,
                               aux_tol))
         worst[op] = max(worst.get(op, 0.0), err)
         cases += 1
+
+    def maker(dt):
+        def make(shape, lo=-200, hi=256):
+            if dt.is_floating_point:
+                a = rng.random(shape)
+            else:
+                a = rng.integers(lo, hi, shape)
+            return torch.as_tensor(a).to(dt).to(dev)
+        return make
+
+    def op_runs(make, b, n):
+        return [("none", None, "none"),
+                ("mul shared", make((1, n + 1, n), -9, 10), "mul"),
+                ("mul batched", make((b, n + 1, n), -9, 10), "mul"),
+                ("conv shared", make((1, n + 1, n), -9, 10), "conv"),
+                ("conv batched", make((b, n + 1, n), -9, 10), "conv")]
 
     for n in TAIL_CHECK_NS:
         table_mb = pipeline_block_spec(n)[0]
@@ -1608,28 +1660,33 @@ def tail_kernel_phase() -> dict:
             for mb in sorted({min(table_mb, dirs_loc), 5}):
                 for b in (1, 3):
                     for dt in (torch.int32, torch.int64, torch.float32):
-                        def make(shape, lo=-200, hi=256):
-                            if dt.is_floating_point:
-                                a = rng.random(shape)
-                            else:
-                                a = rng.integers(lo, hi, shape)
-                            return torch.as_tensor(a).to(dt).to(dev)
-
+                        make = maker(dt)
                         rows = make((b, dirs_loc, n))
-                        runs = [("none", None, "none"),
-                                ("mul shared", make((1, n + 1, n), -9, 10),
-                                 "mul"),
-                                ("mul batched", make((b, n + 1, n), -9, 10),
-                                 "mul"),
-                                ("conv shared", make((1, n + 1, n), -9, 10),
-                                 "conv"),
-                                ("conv batched",
-                                 make((b, n + 1, n), -9, 10), "conv")]
-                        for label, w, op in runs:
+                        for label, w, op in op_runs(make, b, n):
                             for off in offsets:
                                 run(f"{label} N={n} shards={devs} "
                                     f"off={off} M={mb} B={b} {dt}", rows, w,
                                     op, off, mb)
+    # the register tile's edges
+    for n in PIPE_EDGE_NS:
+        for label_s, off, k, mb in tail_edge_shards(n):
+            for b in (1, 3):
+                for dt in (torch.int32, torch.int64, torch.float32,
+                           torch.float64):
+                    make = maker(dt)
+                    rows = make((b, k, n))
+                    for label, w, op in op_runs(make, b, n):
+                        run(f"edge {label_s} {label} N={n} off={off} "
+                            f"rows={k} M={mb} B={b} {dt}", rows, w, op, off,
+                            mb)
+    n = 251
+    for op in ("none", "mul", "conv"):
+        tile = tail_fit_tile(n, 4, op, n + 1)
+        make = maker(torch.int32)
+        rows = make((2, n + 1, n))
+        w = None if op == "none" else make((2, n + 1, n), -9, 10)
+        run(f"edge most directions that fit ({tile.m_block}, {tile.blocks} "
+            f"blocks) {op} N={n}", rows, w, op, 0, tile.m_block, tile=tile)
     big = 2 ** 28
     for n in TAIL_CHECK_NS:
         dirs_loc = -(-(n + 1) // MESH_SHARDS)
@@ -1644,6 +1701,28 @@ def tail_kernel_phase() -> dict:
     log(f"tail kernel phase: {cases} cases agree with the plain version "
         f"(max |err| by op: {worst})")
     return worst
+
+
+def tail_edge_shards(n: int) -> list:
+    """K3's tile edges at N: (label, row_offset, rows, m_block) -- a shard
+    of padding only, one that straddles N (direction N and padding past
+    it, in blocks of 2, the last of padding only), a row_offset that is
+    no multiple of D (blocks of 5 from direction 7), and D = 1."""
+    return [("padding only", n + 1, 4, 2), ("straddles N", n - 2, 7, 2),
+            ("offset not a multiple of D", 7, 17, 5), ("D = 1", 3, 4, 1)]
+
+
+def tail_fit_tile(n: int, itemsize: int, op: str, rows: int):
+    """K3's tile of the most directions per block that fit its shared
+    memory (``tuning.tail_tile`` then spreads them evenly; this keeps
+    them, so the last block is short)."""
+    from repro_torch.kernels.tuning import STREAM_SMEM_BUDGET, \
+        pipeline_geometry
+    d = min(rows, n + 1)
+    while pipeline_geometry(n, itemsize, op, d, source="proj",
+                            rows=rows).smem > STREAM_SMEM_BUDGET:
+        d -= 1
+    return pipeline_geometry(n, itemsize, op, d, source="proj", rows=rows)
 
 
 def circ_conv_np(f, k):
@@ -1855,21 +1934,34 @@ def four_shards_phase() -> None:
         f"oracle, bit for bit")
 
 
+#: m_block values of K3's D sweep at world size 1 (252 directions):
+#: blocks per image 32, 16, 12, 8, 6 and 4, and for mul / none 3 (D = 84,
+#: past the table's 64; conv fits 73 directions at most, so 4 blocks)
+TAIL_SWEEP_MBLOCKS = (8, 16, 21, 32, 42, 64, 84)
+
+
 def tail_timing_phase(launches: dict, worst: dict) -> list:
     """K3 vs its plain version at radon_251, per op: at world size 1 (one
     shard of all N+1 directions, the mesh path's shape) and per shard at
-    D = 4 (a middle shard of 63 directions)."""
+    D = 4 (a middle shard of 63 directions), with its tile, ptxas's
+    registers and the SASS of its inverse loop (instructions per add) and
+    conv window (per multiply-add); and at world size 1 the kernel by
+    directions per block: the m_block sweep plus the most directions
+    that fit, ms against blocks per image fitted as a + c x blocks."""
     import numpy as np
     import torch
     from repro_torch.configs.radon_251 import config
     from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import _build
     from repro_torch.kernels import pipeline as P
     from repro_torch.kernels.sfdprt import sfdprt_plain
-    from repro_torch.kernels.tuning import pipeline_block_spec
+    from repro_torch.kernels.tuning import pipeline_block_spec, tail_tile
 
     cfg = config()
     n, b = cfg.n, cfg.batch
     mb = pipeline_block_spec(n)[0]
+    ptx = ptxas_report("pipeline")
+    sass = sass_hot_blocks(_build._lib_path("pipeline"))
     dev = torch.device("cuda")
     f = torch.from_numpy(radon_images(n, b, kind="phantom")).to(dev)
     rows = sfdprt_plain(f, sign=1, mode="forward")          # (b, N+1, N)
@@ -1896,8 +1988,8 @@ def tail_timing_phase(launches: dict, worst: dict) -> list:
                                "skew-sum tail"}
         for key, (x, off) in shapes.items():
             k = x.shape[1]
+            t = tail_tile(n, item, mb, op, k)
             live = max(0, min(k, n - off))           # directions < N
-            eff = P.tail_smem_rows(n, item, mb, k, op)
             epi = {"conv": b * k * n * n, "mul": b * k * n, "none": 0}[op]
             ops_n = epi + b * live * n * n
             nbytes = item * (b * k * n + b * n * n + 2 * b * n
@@ -1908,12 +2000,26 @@ def tail_timing_phase(launches: dict, worst: dict) -> list:
                 x, opd, op=op, row_offset=off), reps=3, warm=1)
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * ops_n / INT32_ADDS_PER_S
+            pkey = ("pipeline_tail_kernel", "int32", f"K={t.cols}")
             fields = {"ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": max(bytes_ms, ops_ms),
                       "bound_by": ("bytes" if bytes_ms >= ops_ms
                                    else "operations"),
                       "shape": f"N={n} B={b} int32 dirs_loc={k} "
-                               f"row_offset={off} m_block {mb} -> {eff}"}
+                               f"row_offset={off} m_block {mb} -> D = "
+                               f"{t.m_block}, {t.blocks} blocks per image",
+                      "design": {"directions_per_block": t.m_block,
+                                 "blocks_per_image": t.blocks,
+                                 "consumer_warps": t.warps,
+                                 "producer_warps": 0,
+                                 "cols_per_lane": t.cols,
+                                 "items_per_warp": t.items,
+                                 "conv_run": t.conv_run,
+                                 "conv_passes": t.conv_passes,
+                                 "smem_bytes": t.smem,
+                                 "atomics_per_call": b * t.blocks * n * n,
+                                 "ptxas": ptx.get(pkey),
+                                 "sass_hot_block": sass.get(pkey)}}
             if key == "world1":
                 row.update(fields)
             else:
@@ -1921,7 +2027,34 @@ def tail_timing_phase(launches: dict, worst: dict) -> list:
             log(f"timing pipeline tail {op} ({key}): kernel {k_ms:.4f} ms, "
                 f"plain {p_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
                 f"({fields['bound_by']}; {ops_n:.4g} int32 ops; "
-                f"{fields['shape']})")
+                f"{fields['shape']}; {fields['design']})")
+        # the D sweep at world size 1
+        by_d = {}
+        tiles = [tail_tile(n, item, m, op, n + 1) for m in TAIL_SWEEP_MBLOCKS]
+        tiles.append(tail_fit_tile(n, item, op, n + 1))
+        for tm in tiles:
+            if tm.m_block in by_d:
+                continue
+            d_ms = cuda_ms(lambda: P.pipeline_tail_launch_tile(
+                rows, opd, tm, op=op, row_offset=0))
+            by_d[tm.m_block] = {"blocks_per_image": tm.blocks,
+                                "consumer_warps": tm.warps,
+                                "smem_bytes": tm.smem, "ms": d_ms}
+            log(f"timing pipeline tail {op} at D = {tm.m_block} "
+                f"({tm.blocks} blocks per image, {tm.smem} shared bytes): "
+                f"{d_ms:.4f} ms")
+        xs = np.array([v["blocks_per_image"] for v in by_d.values()], float)
+        ys = np.array([v["ms"] for v in by_d.values()])
+        slope, icpt = np.polyfit(xs, ys, 1)
+        t1 = tail_tile(n, item, mb, op, n + 1)
+        row["by_directions_per_block"] = by_d
+        row["per_block_fit"] = {
+            "ms_per_block_per_image": slope, "ms_intercept": icpt,
+            "per_block_share": slope * t1.blocks / row["ms"]}
+        log(f"timing pipeline tail {op}: ms ~ {icpt:.4f} + {slope:.4f} x "
+            f"blocks per image; the per-block cost is "
+            f"{100 * slope * t1.blocks / row['ms']:.1f}% of the kernel at "
+            f"{t1.blocks} blocks per image")
         out.append(row)
     return out
 
@@ -1958,6 +2091,7 @@ def main() -> int:
     kernels += stream_timing_phase(giant_launches, stream_worst)
     kernels += tail_timing_phase(mesh_launches, tail_worst)
     pipeline_profile_phase()
+    pipeline_profile_phase(mesh=True)
     close_world()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 // K2 and K3 on Hopper: the fused projection-domain pipeline and its mesh
-// tail.
+// tail, on the register tile of skew_tile.cuh.
 //
 // Replaces the TPU kernel repro/kernels/sfdprt.py:_pipeline_kernel with
 // source="image", defer=False (launched by pipeline_pallas_raw).  For a
@@ -78,14 +78,19 @@
 // K3 (pipeline_tail_kernel, entry pipeline_tail_launch) replaces the same
 // TPU kernel with source="proj", defer=True: the mesh pipeline's tail.
 // Its input is one shard of already-summed projection rows whose first
-// global direction is row_offset, so it drops the forward stage and runs
-// the device functions load_rows / apply_op / write_aux / inverse_add:
-// the op against the operand's rows at the global directions, the aux
-// rows where the shard holds directions 0 and N, and the inverse of the
-// shard's directions < N added into Z with atomicAdd (one shared-memory
-// load per add and per multiply-add; not yet on K2's register tile).  It
-// launches no finish kernel: the correction needs Z and aux summed over
-// every shard first, which the caller does after its collectives.
+// global direction is row_offset, so it is K2 from the op on, on the same
+// device functions (load_operand_window, conv_rows, put_rc,
+// inverse_rows): a block of D of the shard's rows (tuning.py:tail_tile;
+// no producer warp, no ring) copies its rows of global direction <= N --
+// conv into the rf rows, mul and none (times the weight) straight into
+// the padded rc slots -- runs the op against the operand's rows at the
+// global directions m0 = row_offset + its first row, writes the aux rows
+// where it holds directions 0 and N, and runs the register-tiled inverse
+// over its rows of direction < N with sign -1 and row offset m0, one
+// atomicAdd per output per block.  The row copy is ~64 MB of HBM traffic
+// at radon_251 (~20 us), so no ring hides it.  K3 launches no finish
+// kernel: the correction needs Z and aux summed over every shard first,
+// which the caller does after its collectives.
 //
 // Integer rules that differ from JAX: signed overflow is undefined in C++
 // while JAX wraps, so every integer sum and product runs in the unsigned
@@ -96,6 +101,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "skew_tile.cuh"
 
@@ -107,14 +113,15 @@ using skew::divide_by_n;
 constexpr int kNone = 0;
 constexpr int kMul = 1;
 constexpr int kConv = 2;
-constexpr int kThreads = 256;     // K3 and the finish kernel
+constexpr int kThreads = 256;     // the finish kernel
 constexpr int kFinishRows = 16;   // output rows per block of kernel 2
 // K2: at most 11 consumer warps and the producer, one block per SM: ptxas
 // (which counts warps in fours) keeps 168 registers a thread; at 13 to 16
 // warps it keeps 128, and the int32 and float32 instantiations spilled.
+// K3 runs at most as many warps, all consumers, under the same bounds.
 constexpr int kPipeMaxWarps = 11;
 constexpr int kPipeThreads = (kPipeMaxWarps + 1) * 32;
-// Items a K2 warp holds per accumulator width (kernels/tuning.py:
+// Items a K2 or K3 warp holds per accumulator width (kernels/tuning.py:
 // PIPE_ITEMS): fewer than K1's 8 for 4-byte sums, whose 64 accumulators
 // spilled at 168 registers here though K1 holds them in 128.
 template <int kBytes>
@@ -133,19 +140,20 @@ __device__ __forceinline__ void add_to(double* p, double v) {
 }
 
 // ---------------------------------------------------------------------------
-// K2
+// The tile and the conv window
 // ---------------------------------------------------------------------------
-// What the host decided (kernels/tuning.py:pipeline_tile), checked by
-// launch_checked before any launch.
+// What the host decided (kernels/tuning.py:pipeline_tile for K2, tail_tile
+// for K3), checked by launch_checked / launch_tail_checked before any
+// launch.
 struct PipeGeometry {
-  long long f_bstride, w_bstride;
+  long long f_bstride, w_bstride;  // image (K3: rows) and operand
   int n;
   int dirs;         // D, directions per block
   int n_dblocks;    // direction blocks per image
   int runs;         // column runs per direction, ceil(N / 32K)
   int warps;        // consumer warps per block
-  int stage_rows;   // rows per stage
-  int slots;        // stages in the ring
+  int stage_rows;   // rows per stage (K3: 0, no ring)
+  int slots;        // stages in the ring (K3: 0)
   int row_bytes;    // bytes of one padded staged row, a multiple of 16
   int pad;          // padding columns of a staged or rc row, 32K - 1
   int conv_passes;  // P: runs of 32R outputs per direction in the conv
@@ -194,6 +202,116 @@ __device__ __forceinline__ void conv_run(const U* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The stages after the forward, shared by K2 and K3
+// ---------------------------------------------------------------------------
+// A block owns directions m0 .. m0 + mc - 1; direction m0 + ml has slot ml
+// of the work region, and its rc row lies at rc_off in the slot, padded as
+// a staged row is (column x < N + pad is column x mod N).
+
+// The operand window of each direction from projections (rows m0 + ml of
+// the (N+1, N) operand wb): slot[y + N - 1] = wb[m, <y>_N] for y in
+// [-(N - 1), 32R*P).  Threads tid, tid + threads, ... of the block.
+template <int R, typename T, typename U>
+__device__ __forceinline__ void load_operand_window(
+    U* slots, const T* __restrict__ wb, int m0, int mc,
+    const PipeGeometry& geo, int tid, int threads) {
+  const int n = geo.n;
+  const int ext = n - 1 + 32 * R * geo.conv_passes;
+  for (int e = tid; e < mc * ext; e += threads) {
+    const int ml = e / ext;
+    const int x = e - ml * ext;
+    slots[static_cast<size_t>(ml) * geo.e_slot + x] = static_cast<U>(
+        wb[static_cast<long long>(m0 + ml) * n + (x + 1) % n]);
+  }
+}
+
+// The conv, a warp per direction: rc[m, d] = sum_t rf[ml, t] *
+// rg[m, <d - t>_N] against the direction's operand window; its padded rc
+// row replaces the window (P > 1: each run writes behind the columns the
+// runs still to come read; P = 1: after the run, over the whole slot),
+// and rc rows 0 and N go to aux.
+template <int R, typename T, typename U>
+__device__ __forceinline__ void conv_rows(const U* rf, U* slots,
+                                          T* __restrict__ ab, int m0, int mc,
+                                          const PipeGeometry& geo, int warp,
+                                          int lane) {
+  const int n = geo.n;
+  for (int ml = warp; ml < mc; ml += geo.warps) {
+    const int m = m0 + ml;
+    U* const slot = slots + static_cast<size_t>(ml) * geo.e_slot;
+    U* const rc = slot + geo.rc_off;
+    for (int p = geo.conv_passes - 1; p >= 0; --p) {
+      const int d0 = 32 * R * p + R * lane;
+      U acc[R];
+      conv_run<U, R>(rf + static_cast<size_t>(ml) * n, slot + (n - 1) + d0,
+                     n, acc);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int d = d0 + k;
+        if (d < n) {
+          for (int x = d; x < n + geo.pad; x += n) rc[x] = acc[k];
+          if (m == 0) ab[d] = static_cast<T>(acc[k]);
+          if (m == n) ab[n + d] = static_cast<T>(acc[k]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// mul, none: rc[m, d] from the projection value v (mul: times the weight
+// wb[m, d]) into the direction's padded rc row; returns rc[m, d] (the
+// caller writes the aux rows).
+template <typename T, typename U>
+__device__ __forceinline__ U put_rc(U* slots, const T* __restrict__ wb,
+                                    int m0, int m, int d, U v,
+                                    const PipeGeometry& geo) {
+  const int n = geo.n;
+  if (geo.op == kMul) {
+    v *= static_cast<U>(wb[static_cast<long long>(m) * n + d]);
+  }
+  U* const rc = slots + static_cast<size_t>(m - m0) * geo.e_slot + geo.rc_off;
+  for (int x = d; x < n + geo.pad; x += n) rc[x] = v;
+  return v;
+}
+
+// The inverse of the block's directions m0 .. m0 + ms - 1 (all < N) onto
+// all N x N outputs of image ob: items (output row i, column run) in
+// passes of warps x I; row ml of the register-tiled skew-sum is the rc row
+// of direction m0 + ml, so the window steps by <-i>_N from
+// <32K*c - i*m0>_N.  Each output is added with one atomicAdd per block
+// into an output zeroed on the stream first.
+template <int K, int I, typename T, typename U>
+__device__ __forceinline__ void inverse_rows(const U* slots,
+                                             T* __restrict__ ob, int m0,
+                                             int ms, const PipeGeometry& geo,
+                                             int warp, int lane) {
+  const int n = geo.n;
+  const int runs = geo.runs;
+  const U* const rc0 = slots + geo.rc_off + lane;
+  const int total = n * runs;
+  const int q0 = warp * I;
+  skew::Tile<U, K, I> tile;
+  for (int qb = 0; qb < total; qb += geo.warps * I) {
+    const int qi = qb + q0;
+    const int live = max(0, min(I, total - qi));
+    if (live == 0) break;  // warp-uniform
+    skew::tile_init(tile, qi, live, 0, runs, -1, n, m0 % n);
+#pragma unroll 1  // one rc row at a time, as in skew::consume
+    for (int ml = 0; ml < ms; ++ml) {
+      skew::tile_add_row(tile, rc0 + static_cast<size_t>(ml) * geo.e_slot, n);
+    }
+    skew::tile_emit(tile, qi, live, 0, runs, n, lane, [&](int i, int d, U v) {
+      add_to(ob + static_cast<long long>(i) * n + d, v);
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 pipeline_kernel(const T* __restrict__ f, const T* __restrict__ w,
@@ -270,20 +388,13 @@ pipeline_kernel(const T* __restrict__ f, const T* __restrict__ w,
   }
   skew::consumers_sync(cthreads);  // the ring is drained: the slots are free
 
-  const int pad = geo.pad;
   if (op == kConv) {
-    // -- the operand window of each direction: slot[y + N - 1] = rg[<y>_N]
-    // for y in [-(N - 1), 32R*P)
-    const int reach = 32 * R * geo.conv_passes;
-    const int ext = n - 1 + reach;
+    // -- the operand window of each direction: given projections, or the
+    // forward's registers of an operand image
     if (!geo.operand_image) {
-      for (int e = threadIdx.x; e < mc * ext; e += cthreads) {
-        const int ml = e / ext;
-        const int x = e - ml * ext;
-        slots[static_cast<size_t>(ml) * geo.e_slot + x] = static_cast<U>(
-            wb[static_cast<long long>(m0 + ml) * n + (x + 1) % n]);
-      }
+      load_operand_window<R>(slots, wb, m0, mc, geo, threadIdx.x, cthreads);
     } else {
+      const int reach = 32 * R * geo.conv_passes;
       skew::tile_emit(tile, q0, live, m0, runs, n, lane,
                       [&](int m, int d, U v) {
                         U* const e = slots +
@@ -295,206 +406,93 @@ pipeline_kernel(const T* __restrict__ f, const T* __restrict__ w,
                       });
       if (owns_n) {
         U* const e = slots + static_cast<size_t>(n - m0) * geo.e_slot;
-        for (int x = threadIdx.x; x < ext; x += cthreads) {
+        for (int x = threadIdx.x; x < n - 1 + reach; x += cthreads) {
           e[x] = rg_n[(x + 1) % n];
         }
       }
     }
     skew::consumers_sync(cthreads);
-    // -- the conv, a warp per direction; its padded rc row replaces its
-    // operand window (P > 1: each run writes behind the columns the runs
-    // still to come read; P = 1: after the run, over the whole slot)
-    for (int ml = warp; ml < mc; ml += geo.warps) {
-      const int m = m0 + ml;
-      U* const slot = slots + static_cast<size_t>(ml) * geo.e_slot;
-      U* const rc = slot + geo.rc_off;
-      for (int p = geo.conv_passes - 1; p >= 0; --p) {
-        const int d0 = 32 * R * p + R * lane;
-        U acc[R];
-        conv_run<U, R>(rf + static_cast<size_t>(ml) * n, slot + (n - 1) + d0,
-                       n, acc);
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          const int d = d0 + k;
-          if (d < n) {
-            for (int x = d; x < n + pad; x += n) rc[x] = acc[k];
-            if (m == 0) ab[d] = static_cast<T>(acc[k]);
-            if (m == n) ab[n + d] = static_cast<T>(acc[k]);
-          }
-        }
-        __syncwarp();
-      }
-    }
+    conv_rows<R>(rf, slots, ab, m0, mc, geo, warp, lane);
   } else {
-    // -- mul, none: rc from the forward's registers into padded rows
+    // -- mul, none: rc from the forward's registers into padded rows (its
+    // directions are < N: row N went to aux with the row sums)
     skew::tile_emit(tile, q0, live, m0, runs, n, lane, [&](int m, int d, U v) {
-      if (op == kMul) {
-        v *= static_cast<U>(wb[static_cast<long long>(m) * n + d]);
-      }
-      if (m == 0) ab[d] = static_cast<T>(v);
-      U* const rc =
-          slots + static_cast<size_t>(m - m0) * geo.e_slot + geo.rc_off;
-      for (int x = d; x < n + pad; x += n) rc[x] = v;
+      const U r = put_rc(slots, wb, m0, m, d, v, geo);
+      if (m == 0) ab[d] = static_cast<T>(r);
     });
   }
   skew::consumers_sync(cthreads);
 
-  // -- inverse: items (output row i, column run) in passes of warps x I;
-  // row ml of the skew-sum is rc of direction m0 + ml, so the window steps
-  // by <-i>_N from <32K*c - i*m0>_N
+  // -- inverse: the block's rc rows of directions m < N
   if (ms > 0) {
-    T* const ob = out + static_cast<long long>(b) * n * n;
-    const U* const rc0 = slots + geo.rc_off + lane;
-    const int total = n * runs;
-    for (int qb = 0; qb < total; qb += geo.warps * I) {
-      const int qi = qb + q0;
-      const int live_i = max(0, min(I, total - qi));
-      if (live_i == 0) break;  // warp-uniform
-      skew::tile_init(tile, qi, live_i, 0, runs, -1, n, m0 % n);
-#pragma unroll 1  // one rc row at a time, as in skew::consume
-      for (int ml = 0; ml < ms; ++ml) {
-        skew::tile_add_row(tile, rc0 + static_cast<size_t>(ml) * geo.e_slot,
-                           n);
-      }
-      skew::tile_emit(tile, qi, live_i, 0, runs, n, lane,
-                      [&](int i, int d, U v) {
-                        add_to(ob + static_cast<long long>(i) * n + d, v);
-                      });
-    }
+    inverse_rows<K, I>(slots, out + static_cast<long long>(b) * n * n, m0, ms,
+                       geo, warp, lane);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3's device functions (the mesh tail; K2 no longer uses them)
+// K3, the mesh pipeline's shard-local tail (see pipeline_tail_launch): K2
+// from the op on
 // ---------------------------------------------------------------------------
-// dst[e] = src[e] for the first rows * n values (rows of the operand or
-// of already-assembled projections, in T), widened to the arithmetic type.
-template <typename T>
-__device__ void load_rows(arith_t<T>* dst, const T* __restrict__ src, int n,
-                          int rows) {
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    dst[e] = static_cast<arith_t<T>>(src[e]);
-  }
-  __syncthreads();
-}
-
-// The per-direction op over rows ml < mc of rf (shared memory); returns
-// where the result rc lies.  conv: rc[ml, d] = sum_t rf[ml, t] *
-// rg[ml, <d - t>_n] into `work`; mul: rf[ml, :] * w[ml, :] in place (w
-// in T, the block's rows of the operand); none: rf itself.
-template <typename T>
-__device__ arith_t<T>* apply_op(arith_t<T>* rf, const arith_t<T>* rg,
-                                arith_t<T>* work, const T* __restrict__ w,
-                                int n, int mc, int op) {
+// One block per (image b, block of D of the shard's n_rows rows), every
+// warp a consumer (no forward, no ring); the block's first global
+// direction is m0 = row_offset + its first row.  Rows of global index > N
+// (the padding of the direction space) are zero, so the block keeps only
+// its rows <= N -- the operand is never read past its row N -- and returns
+// at once when it has none.
+template <typename T, int K>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+pipeline_tail_kernel(const T* __restrict__ rows, const T* __restrict__ w,
+                     T* __restrict__ out, T* __restrict__ aux,
+                     const PipeGeometry geo, int n_rows, int row_offset) {
   using U = arith_t<T>;
-  const int size = mc * n;
-  if (op == kConv) {
-    for (int e = threadIdx.x; e < size; e += blockDim.x) {
-      const int ml = e / n;
-      const int d = e - ml * n;
-      const U* a = rf + ml * n;  // a warp mostly shares ml: a broadcast
-      const U* g = rg + ml * n;  // and reads neighbouring words here
-      U acc = U(0);
-      int idx = d;  // <d - t>_n
-      for (int t = 0; t < n; ++t) {
-        acc += a[t] * g[idx];
-        idx = idx == 0 ? n - 1 : idx - 1;
-      }
-      work[e] = acc;
-    }
-    __syncthreads();
-    return work;
-  }
-  if (op == kMul) {
-    for (int e = threadIdx.x; e < size; e += blockDim.x) {
-      rf[e] = rf[e] * static_cast<U>(w[e]);
-    }
-    __syncthreads();
-  }
-  return rf;
-}
+  constexpr int I = kPipeItems<sizeof(T)>;
+  constexpr int R = skew::kConvRun<K>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  U* const rf = reinterpret_cast<U*>(smem_raw + skew::kBarrierBytes);
+  U* const slots =
+      reinterpret_cast<U*>(smem_raw + skew::kBarrierBytes + geo.rf_bytes);
 
-// The correction rows: rc's global direction 0 (for S) into aux row 0,
-// direction N (the column R'(N, i)) into aux row 1, where this block
-// holds them (its rows are global directions m0 .. m0 + mc - 1).
-template <typename T>
-__device__ void write_aux(const arith_t<T>* rc, T* __restrict__ ab, int n,
-                          int m0, int mc) {
-  if (m0 == 0) {
-    for (int d = threadIdx.x; d < n; d += blockDim.x) {
-      ab[d] = static_cast<T>(rc[d]);
-    }
-  }
-  if (m0 <= n && n < m0 + mc) {
-    const arith_t<T>* row = rc + static_cast<long long>(n - m0) * n;
-    for (int d = threadIdx.x; d < n; d += blockDim.x) {
-      ab[n + d] = static_cast<T>(row[d]);
-    }
-  }
-}
-
-// The inverse of directions m0 .. m0 + mi - 1 (all < n, rows of rc) onto
-// all n x n outputs: ob[i, j] += sum_ml rc[ml, <j - (m0 + ml) * i>_n],
-// across blocks with atomicAdd.
-template <typename T>
-__device__ void inverse_add(const arith_t<T>* rc, T* __restrict__ ob, int n,
-                            int m0, int mi) {
-  using U = arith_t<T>;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n;
-    const int j = e - i * n;
-    int idx = j - static_cast<int>((static_cast<long long>(m0) * i) % n);
-    if (idx < 0) idx += n;  // <j - m0*i>_n
-    U acc = U(0);
-    const U* row = rc;
-    for (int ml = 0; ml < mi; ++ml, row += n) {
-      acc += row[idx];
-      idx -= i;
-      if (idx < 0) idx += n;
-    }
-    add_to(ob + e, acc);
-  }
-}
-
-// K3, the mesh pipeline's shard-local tail (see pipeline_tail_launch).
-// One block per (image b, block of m_block of the shard's n_rows rows);
-// the block's first global direction is dir0 = row_offset + its first
-// row.  Rows of global index > n (the padding of the direction space)
-// are zero, so the block keeps only its rows <= n -- the operand is
-// never read past its row n -- and returns early when it has none.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pipeline_tail_kernel(const T* __restrict__ rows, long long r_bstride,
-                     int n_rows, const T* __restrict__ w,
-                     long long w_bstride, T* __restrict__ out,
-                     T* __restrict__ aux, int n, int m_block, int n_mblocks,
-                     int row_offset, int op) {
-  using U = arith_t<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  U* rf = reinterpret_cast<U*>(smem_raw);
-  U* rg = rf + static_cast<size_t>(m_block) * n;  // conv only
-  U* work = rg + static_cast<size_t>(m_block) * n;
-
-  const int b = blockIdx.x / n_mblocks;
-  const int k0 = (blockIdx.x - b * n_mblocks) * m_block;
+  const int n = geo.n;
+  const int b = blockIdx.x / geo.n_dblocks;
+  const int k0 = (blockIdx.x - b * geo.n_dblocks) * geo.dirs;
   const long long dir0 = static_cast<long long>(row_offset) + k0;
   if (dir0 > n) return;  // block-uniform: every row is padding
-  const int mc = static_cast<int>(
-      min(static_cast<long long>(min(m_block, n_rows - k0)), n + 1 - dir0));
   const int m0 = static_cast<int>(dir0);
+  const int mc = min(min(geo.dirs, n_rows - k0), n + 1 - m0);
+  const int ms = max(0, min(mc, n - m0));  // directions < N
+  const T* const src =
+      rows + b * geo.f_bstride + static_cast<long long>(k0) * n;
+  const T* const wb = w == nullptr ? nullptr : w + b * geo.w_bstride;
+  T* const ab = aux + static_cast<long long>(b) * 2 * n;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int threads = geo.warps * 32;
 
-  load_rows<T>(rf, rows + b * r_bstride + static_cast<long long>(k0) * n, n,
-               mc);
-  const T* wb = w == nullptr
-                    ? nullptr
-                    : w + b * w_bstride + static_cast<long long>(m0) * n;
-  if (op == kConv) load_rows<T>(rg, wb, n, mc);
-  const U* rc = apply_op<T>(rf, rg, work, wb, n, mc, op);
-  write_aux<T>(rc, aux + static_cast<long long>(b) * 2 * n, n, m0, mc);
-  const int mi = min(mc, n - m0);  // rows of global direction < n
-  if (mi > 0) {
-    inverse_add<T>(rc, out + static_cast<long long>(b) * n * n, n, m0, mi);
+  // -- the shard's rows: conv into rf, beside each direction's operand
+  // window; mul and none straight into the padded rc rows (and aux)
+  if (geo.op == kConv) {
+    for (int e = threadIdx.x; e < mc * n; e += threads) {
+      rf[e] = static_cast<U>(src[e]);
+    }
+    load_operand_window<R>(slots, wb, m0, mc, geo, threadIdx.x, threads);
+    __syncthreads();
+    conv_rows<R>(rf, slots, ab, m0, mc, geo, warp, lane);
+  } else {
+    for (int e = threadIdx.x; e < mc * n; e += threads) {
+      const int ml = e / n;
+      const int m = m0 + ml;
+      const int d = e - ml * n;
+      const U r = put_rc(slots, wb, m0, m, d, static_cast<U>(src[e]), geo);
+      if (m == 0) ab[d] = static_cast<T>(r);
+      if (m == n) ab[n + d] = static_cast<T>(r);
+    }
+  }
+  __syncthreads();
+  // -- inverse: the block's rc rows of directions m < N
+  if (ms > 0) {
+    inverse_rows<K, I>(slots, out + static_cast<long long>(b) * n * n, m0, ms,
+                       geo, warp, lane);
   }
 }
 
@@ -559,8 +557,33 @@ int launch(const void* f, const void* w, void* out, void* aux, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile of kernels/tuning.py:pipeline_tile as the host passes it:
-// the fields of its PipelineTile, in their order.
+template <typename T, int K>
+int launch_tail(const void* rows, const void* w, void* out, void* aux,
+                int batch, const PipeGeometry& geo, int n_rows,
+                int row_offset, size_t smem, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pipeline_tail_kernel<T, K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(batch) * geo.n * geo.n * sizeof(T), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(
+      aux, 0, static_cast<size_t>(batch) * 2 * geo.n * sizeof(T), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pipeline_tail_kernel<T, K><<<static_cast<unsigned>(blocks), geo.warps * 32,
+                               smem, stream>>>(
+      static_cast<const T*>(rows), static_cast<const T*>(w),
+      static_cast<T*>(out), static_cast<T*>(aux), geo, n_rows, row_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile of kernels/tuning.py:pipeline_tile (K2) or tail_tile (K3) as
+// the host passes it: the fields of its PipelineTile, in their order.
 namespace tile {
 enum : int {
   kStageRows,
@@ -583,45 +606,41 @@ enum : int {
 };
 }  // namespace tile
 
-// Check the host's tile against this instantiation and the budgets, and
-// launch the instantiation of K.  The layout is the host's; these are
-// the conditions the kernel relies on.
-template <typename T>
-int launch_checked(const void* f, long long f_bstride, const void* w,
-                   long long w_bstride, void* out, void* aux, int batch,
-                   int n, const int* t, int op, int operand_image,
-                   cudaStream_t s) {
-  const int dirs = t[tile::kMBlock], warps = t[tile::kWarps];
-  const int cols = t[tile::kCols], items = t[tile::kItems];
-  const int conv_run = t[tile::kConvRun], smem = t[tile::kSmem];
+PipeGeometry read_tile(const int* t, int n, int op, int operand_image,
+                       long long f_bstride, long long w_bstride) {
   PipeGeometry geo;
   geo.f_bstride = f_bstride;
   geo.w_bstride = w_bstride;
   geo.n = n;
-  geo.dirs = dirs;
+  geo.dirs = t[tile::kMBlock];
+  geo.n_dblocks = t[tile::kBlocks];
   geo.runs = t[tile::kRuns];
-  geo.pad = t[tile::kPad];
-  geo.row_bytes = t[tile::kRowBytes];
+  geo.warps = t[tile::kWarps];
   geo.stage_rows = t[tile::kStageRows];
   geo.slots = t[tile::kSlots];
+  geo.row_bytes = t[tile::kRowBytes];
+  geo.pad = t[tile::kPad];
   geo.conv_passes = t[tile::kConvPasses];
   geo.e_slot = t[tile::kESlot];
   geo.rc_off = t[tile::kRcOff];
   geo.rf_bytes = t[tile::kRfBytes];
-  geo.n_dblocks = t[tile::kBlocks];
-  geo.warps = warps;
   geo.op = op;
   geo.operand_image = operand_image;
+  return geo;
+}
+
+// The conditions that the op and inverse stages of both kernels rely on:
+// the register tile, the padded rc rows, the conv's window and the rf
+// rows, and shared memory for the rf rows and D slots within the budget.
+template <typename T>
+bool op_stages_ok(const PipeGeometry& geo, const int* t) {
   using LL = long long;
   const LL sz = static_cast<LL>(sizeof(T));
-  const LL skew_rows = dirs < n ? dirs : n;
-  const LL slot_area = static_cast<LL>(dirs) * geo.e_slot * sz;
-  const LL ring_area = static_cast<LL>(geo.slots) * geo.stage_rows *
-                       geo.row_bytes;
-  const LL need = skew::kBarrierBytes + geo.rf_bytes +
-                  (slot_area > ring_area ? slot_area : ring_area);
+  const int n = geo.n, dirs = geo.dirs;
+  const int cols = t[tile::kCols], conv_run = t[tile::kConvRun];
+  const LL smem = t[tile::kSmem];
   const bool conv_ok =
-      op != kConv ||
+      geo.op != kConv ||
       (geo.conv_passes >= 1 &&
        static_cast<LL>(geo.conv_passes) * 32 * conv_run >= n &&
        // the operand window: columns -(N-1) .. 32R*P of the slot
@@ -629,76 +648,99 @@ int launch_checked(const void* f, long long f_bstride, const void* w,
        // P > 1: each run writes rc behind the columns later runs read
        (geo.conv_passes == 1 || geo.rc_off >= n - 1) &&
        geo.rf_bytes >= static_cast<LL>(dirs + 1) * n * sz);
-  if (dirs < 1 || dirs > n + 1 || warps < 1 || geo.stage_rows < 1 ||
-      geo.stage_rows > n || geo.slots < 1 || geo.n_dblocks < 1 ||
-      items != kPipeItems<sizeof(T)> || warps > kPipeMaxWarps ||
-      n >= (1 << 16) || geo.runs < 1 ||
-      // every column lies in a run, and no window leaves its padded row
-      static_cast<LL>(geo.runs) * 32 * cols < n || geo.pad < 32 * cols - 1 ||
-      // a row lands at its source's address mod 16: up to 15 bytes of lead
-      geo.row_bytes % 16 != 0 ||
-      geo.row_bytes < (static_cast<LL>(n) + geo.pad) * sz + 15 ||
-      geo.rc_off < 0 || geo.e_slot < geo.rc_off + n + geo.pad ||
-      geo.rf_bytes < 0 || geo.rf_bytes % 16 != 0 || !conv_ok ||
-      static_cast<LL>(warps) * items < skew_rows * geo.runs ||
-      static_cast<LL>(geo.n_dblocks) * dirs < n + 1 ||
-      static_cast<LL>(geo.n_dblocks - 1) * dirs >= n + 1 ||
-      geo.slots > skew::kMaxSlots || (geo.slots < 2 && n > geo.stage_rows) ||
-      smem < need || static_cast<size_t>(smem) > skew::kSmemMax) {
-    // the producer pads stage k - 1 after issuing stage k, so a ring of
-    // one slot holds one stage only
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t bytes = static_cast<size_t>(smem);
+  return dirs >= 1 && dirs <= n + 1 && geo.warps >= 1 &&
+         geo.warps <= kPipeMaxWarps &&
+         t[tile::kItems] == kPipeItems<sizeof(T)> && n < (1 << 16) &&
+         geo.runs >= 1 && geo.n_dblocks >= 1 &&
+         // every column lies in a run, and no window leaves its padded row
+         static_cast<LL>(geo.runs) * 32 * cols >= n &&
+         geo.pad >= 32 * cols - 1 && geo.rc_off >= 0 &&
+         geo.e_slot >= geo.rc_off + n + geo.pad && geo.rf_bytes >= 0 &&
+         geo.rf_bytes % 16 == 0 && conv_ok &&
+         smem >= skew::kBarrierBytes + geo.rf_bytes +
+                     static_cast<LL>(dirs) * geo.e_slot * sz &&
+         static_cast<size_t>(smem) <= skew::kSmemMax;
+}
+
+// launch(std::integral_constant<int, K>()) for the instantiation K = cols;
+// a conv run other than that K's is refused.
+template <typename F>
+int by_cols(int cols, int conv_run, F&& launch) {
   switch (cols) {
     case 1:
       if (conv_run != skew::kConvRun<1>) break;
-      return launch<T, 1>(f, w, out, aux, batch, geo, bytes, s);
+      return launch(std::integral_constant<int, 1>());
     case 2:
       if (conv_run != skew::kConvRun<2>) break;
-      return launch<T, 2>(f, w, out, aux, batch, geo, bytes, s);
+      return launch(std::integral_constant<int, 2>());
     case 4:
       if (conv_run != skew::kConvRun<4>) break;
-      return launch<T, 4>(f, w, out, aux, batch, geo, bytes, s);
+      return launch(std::integral_constant<int, 4>());
     case 8:
       if (conv_run != skew::kConvRun<8>) break;
-      return launch<T, 8>(f, w, out, aux, batch, geo, bytes, s);
+      return launch(std::integral_constant<int, 8>());
     default:
       break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Check the host's tile against this instantiation and the budgets, and
+// launch K2's instantiation of K.  The layout is the host's; these are
+// the conditions the kernel relies on: the op stages', then the forward's
+// (its warps hold the block's directions) and the ring's.
 template <typename T>
-int launch_tail(const void* rows, long long r_bstride, int n_rows,
-                const void* w, long long w_bstride, void* out, void* aux,
-                int batch, int n, int m_block, int row_offset, int op,
-                cudaStream_t stream) {
-  const int n_mblocks = (n_rows + m_block - 1) / m_block;
-  const long long blocks = static_cast<long long>(batch) * n_mblocks;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int bufs = op == kConv ? 3 : 1;  // rf (+ rg and rc for conv)
-  const size_t smem = static_cast<size_t>(bufs) * m_block * n * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pipeline_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+int launch_checked(const void* f, long long f_bstride, const void* w,
+                   long long w_bstride, void* out, void* aux, int batch,
+                   int n, const int* t, int op, int operand_image,
+                   cudaStream_t s) {
+  const PipeGeometry geo =
+      read_tile(t, n, op, operand_image, f_bstride, w_bstride);
+  using LL = long long;
+  const LL sz = static_cast<LL>(sizeof(T));
+  const LL skew_rows = geo.dirs < n ? geo.dirs : n;
+  const LL ring_area = static_cast<LL>(geo.slots) * geo.stage_rows *
+                       geo.row_bytes;
+  if (!op_stages_ok<T>(geo, t) ||
+      static_cast<LL>(geo.warps) * t[tile::kItems] < skew_rows * geo.runs ||
+      static_cast<LL>(geo.n_dblocks) * geo.dirs < n + 1 ||
+      static_cast<LL>(geo.n_dblocks - 1) * geo.dirs >= n + 1 ||
+      geo.stage_rows < 1 || geo.stage_rows > n || geo.slots < 1 ||
+      // a row lands at its source's address mod 16: up to 15 bytes of lead
+      geo.row_bytes % 16 != 0 ||
+      geo.row_bytes < (static_cast<LL>(n) + geo.pad) * sz + 15 ||
+      t[tile::kSmem] < skew::kBarrierBytes + geo.rf_bytes + ring_area ||
+      geo.slots > skew::kMaxSlots || (geo.slots < 2 && n > geo.stage_rows)) {
+    // the producer pads stage k - 1 after issuing stage k, so a ring of
+    // one slot holds one stage only
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(batch) * n * n * sizeof(T), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(aux, 0, static_cast<size_t>(batch) * 2 * n * sizeof(T),
-                        stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pipeline_tail_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                            stream>>>(
-      static_cast<const T*>(rows), r_bstride, n_rows,
-      static_cast<const T*>(w), w_bstride, static_cast<T*>(out),
-      static_cast<T*>(aux), n, m_block, n_mblocks, row_offset, op);
-  return static_cast<int>(cudaGetLastError());
+  const size_t bytes = static_cast<size_t>(t[tile::kSmem]);
+  return by_cols(t[tile::kCols], t[tile::kConvRun], [&](auto k) {
+    return launch<T, decltype(k)::value>(f, w, out, aux, batch, geo, bytes, s);
+  });
 }
 
+// The same for K3: the op stages' conditions, no ring, and blocks of D
+// rows that cover the shard's n_rows rows.
+template <typename T>
+int launch_tail_checked(const void* rows, long long r_bstride, int n_rows,
+                        const void* w, long long w_bstride, void* out,
+                        void* aux, int batch, int n, const int* t,
+                        int row_offset, int op, cudaStream_t s) {
+  const PipeGeometry geo = read_tile(t, n, op, 0, r_bstride, w_bstride);
+  using LL = long long;
+  if (!op_stages_ok<T>(geo, t) || geo.stage_rows != 0 || geo.slots != 0 ||
+      static_cast<LL>(geo.n_dblocks) * geo.dirs < n_rows ||
+      static_cast<LL>(geo.n_dblocks - 1) * geo.dirs >= n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = static_cast<size_t>(t[tile::kSmem]);
+  return by_cols(t[tile::kCols], t[tile::kConvRun], [&](auto k) {
+    return launch_tail<T, decltype(k)::value>(rows, w, out, aux, batch, geo,
+                                              n_rows, row_offset, bytes, s);
+  });
+}
 
 }  // namespace
 
@@ -749,38 +791,44 @@ extern "C" int pipeline_launch(int dtype, const void* f, long long f_bstride,
 // shard's directions < n, aux (batch, 2, n) the op's rows 0 and N where
 // the shard holds them; both are zeroed first, and there is no
 // correction or divide: it needs the sum of every shard's Z and aux.
+// tile: the tile::kCount fields of kernels/tuning.py:tail_tile.
 // Bound: at B = 256, N = 251 the inverse's adds (B * dirs * N^2) and, for
 // conv, as many multiply-adds dominate the ~130 MB moved, so operations;
-// each costs a shared-memory load here, as in K2.
+// the inverse is K2's register-tiled skew-sum, one shared load per add,
+// and the conv K2's register window.
 extern "C" int pipeline_tail_launch(int dtype, const void* rows,
                                     long long r_bstride, int n_rows,
                                     const void* w, long long w_bstride,
                                     void* out, void* aux, int batch, int n,
-                                    int m_block, int row_offset, int op,
+                                    const int* tile, int row_offset, int op,
                                     void* stream) {
-  if (batch < 1 || n < 2 || n_rows < 1 || m_block < 1 || m_block > n_rows ||
+  if (tile == nullptr || batch < 1 || n < 2 || n_rows < 1 ||
       row_offset < 0 || op < kNone || op > kConv ||
       (op == kNone) != (w == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_tail<int32_t>(rows, r_bstride, n_rows, w, w_bstride,
-                                        out, aux, batch, n, m_block,
-                                        row_offset, op, s);
-    case 1: return launch_tail<int64_t>(rows, r_bstride, n_rows, w, w_bstride,
-                                        out, aux, batch, n, m_block,
-                                        row_offset, op, s);
-    case 2: return launch_tail<float>(rows, r_bstride, n_rows, w, w_bstride,
-                                      out, aux, batch, n, m_block,
-                                      row_offset, op, s);
-    case 3: return launch_tail<double>(rows, r_bstride, n_rows, w, w_bstride,
-                                       out, aux, batch, n, m_block,
-                                       row_offset, op, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0:
+      return launch_tail_checked<int32_t>(rows, r_bstride, n_rows, w,
+                                          w_bstride, out, aux, batch, n, tile,
+                                          row_offset, op, s);
+    case 1:
+      return launch_tail_checked<int64_t>(rows, r_bstride, n_rows, w,
+                                          w_bstride, out, aux, batch, n, tile,
+                                          row_offset, op, s);
+    case 2:
+      return launch_tail_checked<float>(rows, r_bstride, n_rows, w, w_bstride,
+                                        out, aux, batch, n, tile, row_offset,
+                                        op, s);
+    case 3:
+      return launch_tail_checked<double>(rows, r_bstride, n_rows, w,
+                                         w_bstride, out, aux, batch, n, tile,
+                                         row_offset, op, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
 
 extern "C" const char* pipeline_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

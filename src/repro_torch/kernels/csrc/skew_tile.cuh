@@ -1,5 +1,5 @@
 // The register-tiled skew-sum on Hopper: device code that K1
-// (sfdprt.cu) and K2 (pipeline.cu) share.
+// (sfdprt.cu), K2 and K3 (pipeline.cu) share.
 //
 // A skew-sum adds, for every output (m, d), one element of each of its
 // rows: out[m, d] = sum_r row_r[<d + s_m * r>_N].  Here the sums live in
@@ -60,11 +60,11 @@ constexpr size_t kSmemMax = 232448;  // 227 KB, a block's opt-in maximum
 
 // Items a K1 warp holds per accumulator width (kernels/tuning.py:
 // SKEW_ITEMS holds the same): 8 x K <= 64 accumulator registers for
-// 4-byte sums, 4 x K 8-byte sums.  K2 holds fewer (pipeline.cu).
+// 4-byte sums, 4 x K 8-byte sums.  K2 and K3 hold fewer (pipeline.cu).
 template <int kBytes>
 constexpr int kItems = kBytes == 4 ? 8 : 4;
 
-// The run of consecutive outputs one lane owns in K2's conv epilogue
+// The run of consecutive outputs one lane owns in the conv of K2 and K3
 // (kernels/tuning.py:conv_run): odd, so that the lanes' loads at stride
 // R hit 32 different banks, and >= K, so that a direction's padded rc
 // row fits where its operand window lay.

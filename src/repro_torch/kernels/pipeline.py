@@ -34,10 +34,14 @@ pipeline (:func:`repro_torch.core.distributed.projection_pipeline_sharded`).
 It takes one shard of already-summed projection rows whose first global
 direction is ``row_offset`` and returns the shard's uncorrected inverse
 ``Z`` and the op's rows 0 and N (``aux``, zero where the shard does not
-hold them); the correction waits for the sum over shards.
-:func:`pipeline_tail_raw` launches it (or, on a CPU tensor, runs
-:func:`pipeline_tail_plain`).  K3 keeps its own shared-memory budget
-(:data:`TAIL_SMEM_BUDGET`, :func:`tail_smem_rows`).
+hold them); the correction waits for the sum over shards.  It is K2 from
+the op on: the same device functions for the operand window, the conv's
+register window, the padded rc rows and the register-tiled inverse, on a
+tile from the same layout (:func:`.tuning.tail_tile`, ``source="proj"``:
+no forward and no ring, so only shared memory, ``m_block`` and the
+shard's rows cap its directions per block).  :func:`pipeline_tail_raw`
+launches it (or, on a CPU tensor, runs :func:`pipeline_tail_plain`);
+:func:`pipeline_tail_launch_tile` launches it with an explicit tile.
 """
 from __future__ import annotations
 
@@ -50,12 +54,12 @@ import torch
 from ..core.conv import circ_conv1d_exact
 from . import _build
 from .sfdprt import _DTYPES, sfdprt_plain, tile_array
-from .tuning import PipelineTile, pipeline_tile
+from .tuning import PipelineTile, pipeline_tile, tail_tile
 
 __all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_launch_tile",
-           "pipeline_plain", "pipeline_tail_raw", "pipeline_tail_plain",
-           "tail_smem_rows", "TAIL_SMEM_BUDGET", "OP_LAUNCHES",
-           "TAIL_OP_LAUNCHES", "reset_launch_counts"]
+           "pipeline_plain", "pipeline_tail_raw", "pipeline_tail_launch_tile",
+           "pipeline_tail_plain", "OP_LAUNCHES", "TAIL_OP_LAUNCHES",
+           "reset_launch_counts"]
 
 PIPELINE_OPS = ("none", "mul", "conv")
 _OPS = {"none": 0, "mul": 1, "conv": 2}
@@ -67,34 +71,15 @@ _OPS = {"none": 0, "mul": 1, "conv": 2}
 #: divide once every block of an image is done).
 OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
 #: the same for K3: tail calls that launched it, by op (one call is two
-#: memsets and one kernel launch).  Only :func:`pipeline_tail_raw` adds.
+#: memsets and one kernel launch).  Only
+#: :func:`pipeline_tail_launch_tile` adds.
 TAIL_OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
-
-#: shared memory one K3 block may take: two blocks fit on an H100 SM
-#: (228 KB of shared memory per SM, 1 KB of it reserved per block)
-TAIL_SMEM_BUDGET = 113 * 1024
 
 
 def reset_launch_counts() -> None:
     for counts in (OP_LAUNCHES, TAIL_OP_LAUNCHES):
         for op in counts:
             counts[op] = 0
-
-
-def tail_smem_rows(n: int, itemsize: int, m_block: int, rows: int,
-                   op: str) -> int:
-    """Rows of the shard one K3 block owns: at most ``m_block`` and
-    ``rows``, and no more than fit :data:`TAIL_SMEM_BUDGET` (``conv``
-    holds rf, rg and rc rows; ``mul``/``none`` rf alone).  Raises
-    ValueError when not even one row fits."""
-    fit = TAIL_SMEM_BUDGET // (n * itemsize) // (3 if op == "conv" else 1)
-    if fit < 1:
-        raise ValueError(
-            f"one direction row of N={n} {itemsize}-byte values (with its "
-            f"operand and result rows for op={op!r}) does not fit the "
-            f"pipeline tail kernel's {TAIL_SMEM_BUDGET}-byte shared-memory "
-            f"budget")
-    return max(1, min(int(m_block), int(rows), fit))
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,7 +90,7 @@ def _lib() -> ctypes.CDLL:
                                     vp, i32, i32, vp]
     lib.pipeline_launch.restype = i32
     lib.pipeline_tail_launch.argtypes = [i32, vp, i64, i32, vp, i64, vp, vp,
-                                         i32, i32, i32, i32, i32, vp]
+                                         i32, i32, vp, i32, i32, vp]
     lib.pipeline_tail_launch.restype = i32
     lib.pipeline_error_string.argtypes = [i32]
     lib.pipeline_error_string.restype = ctypes.c_char_p
@@ -290,8 +275,9 @@ def pipeline_tail_raw(rows: torch.Tensor,
     (B, N, N) inverse of the shard's directions < N without correction
     or divide, and the (B, 2, N) op rows 0 and N (zero where the shard
     does not hold them).  A CUDA tensor launches the kernel on the
-    current stream (raising if the launch is refused); a CPU tensor
-    takes :func:`pipeline_tail_plain`.
+    current stream with :func:`.tuning.tail_tile`'s tile (``m_block``
+    caps its directions per block; raising if the launch is refused); a
+    CPU tensor takes :func:`pipeline_tail_plain`.
     """
     _check_tail(rows, operand, op, row_offset, m_block)
     if rows.device.type == "cpu":
@@ -300,12 +286,30 @@ def pipeline_tail_raw(rows: torch.Tensor,
     if rows.device.type != "cuda":
         raise RuntimeError(f"K3 runs on CUDA or CPU tensors, not "
                            f"{rows.device}")
+    _, k, n = rows.shape
+    tile = tail_tile(n, rows.element_size(), int(m_block), op, k)
+    return pipeline_tail_launch_tile(rows, operand, tile, op=op,
+                                     row_offset=row_offset)
+
+
+def pipeline_tail_launch_tile(rows: torch.Tensor,
+                              operand: Optional[torch.Tensor],
+                              tile: PipelineTile, *, op: str,
+                              row_offset: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 over the CUDA shard ``rows`` with an explicit ``tile``
+    (:func:`pipeline_tail_raw` passes :func:`.tuning.tail_tile`'s;
+    ``chip_smoke.py`` times others).  The kernel checks the tile against
+    its own constants and budgets and the launch raises if it is
+    refused."""
+    _check_tail(rows, operand, op, row_offset, tile.m_block)
+    if rows.device.type != "cuda":
+        raise RuntimeError(f"K3 launches on CUDA tensors, not {rows.device}")
     b, k, n = rows.shape
     z = torch.empty((b, n, n), dtype=rows.dtype, device=rows.device)
     aux = torch.empty((b, 2, n), dtype=rows.dtype, device=rows.device)
     if b == 0:
         return z, aux
-    mb = tail_smem_rows(n, rows.element_size(), m_block, k, op)
     lib = _lib()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     w_ptr, w_stride = None, 0
@@ -315,12 +319,12 @@ def pipeline_tail_raw(rows: torch.Tensor,
             else 0
     err = lib.pipeline_tail_launch(
         _DTYPES[rows.dtype], rows.data_ptr(), rows.stride(0), k, w_ptr,
-        w_stride, z.data_ptr(), aux.data_ptr(), b, n, mb, int(row_offset),
-        _OPS[op], stream)
+        w_stride, z.data_ptr(), aux.data_ptr(), b, n, tile_array(tile),
+        int(row_offset), _OPS[op], stream)
     if err != 0:
         raise RuntimeError(
             f"pipeline tail kernel launch failed (op={op}, B={b}, rows={k}, "
-            f"N={n}, row_offset={row_offset}, m_block={mb}): "
+            f"N={n}, row_offset={row_offset}, {tile}): "
             f"{lib.pipeline_error_string(err).decode()}")
     TAIL_OP_LAUNCHES[op] += 1
     return z, aux

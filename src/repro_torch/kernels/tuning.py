@@ -21,12 +21,13 @@ registers, how its warps split them, and how many rows each stage of
 its shared-memory ring holds.  ``stream_rows`` caps the stage height
 there, it does not set it, and a plan reports the knob unchanged.
 
-:func:`skew_tile` (K1) and :func:`pipeline_tile` (K2) are the Hopper
-resolution of the register-tiled skew-sum the two kernels share
-(``csrc/skew_tile.cuh``): the columns a lane holds per item, the
-directions per block and its warps, the stage height and ring depth,
-and for K2 the layout of its shared memory.  ``strip_rows`` caps K1's
-stage height and ``m_block`` caps the directions per block of both.
+:func:`skew_tile` (K1), :func:`pipeline_tile` (K2) and :func:`tail_tile`
+(K3) are the Hopper resolution of the register-tiled skew-sum the
+kernels share (``csrc/skew_tile.cuh``): the columns a lane holds per
+item, the directions per block and its warps, the stage height and ring
+depth, and for K2 and K3 the layout of their shared memory.
+``strip_rows`` caps K1's stage height and ``m_block`` caps the
+directions per block of all three.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "SKEW_ITEMS", "SKEW_COLS", "SKEW_WARPS", "SKEW_SMEM_BUDGET",
            "PIPE_WARPS", "PIPE_ITEMS", "SkewTile", "skew_cols", "conv_run",
            "skew_row_bytes", "skew_holds", "skew_geometry", "skew_tile",
-           "PipelineTile", "pipeline_geometry", "pipeline_tile"]
+           "PipelineTile", "pipeline_geometry", "pipeline_tile",
+           "tail_tile"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
@@ -468,18 +470,18 @@ def skew_tile(n: int, rows: int, itemsize: int, strip_rows: int,
 
 
 class PipelineTile(NamedTuple):
-    """K2's launch geometry and shared-memory layout
-    (``csrc/pipeline.cu``).  The kernel takes every field as given and
-    only checks it against its compile-time constants and budgets."""
-    stage_rows: int     # rows per stage of the image's ring
-    slots: int          # stages in the ring
+    """The launch geometry and shared-memory layout of K2 and K3
+    (``csrc/pipeline.cu``).  The kernels take every field as given and
+    only check it against their compile-time constants and budgets."""
+    stage_rows: int     # rows per stage of the image's ring (K3: 0)
+    slots: int          # stages in the ring (K3: 0, no ring)
     m_block: int        # D: directions per block (<= m_block)
     cols: int           # columns a lane holds per item (skew-sums)
     items: int          # items a consumer warp holds
-    warps: int          # consumer warps per block (plus one producer)
+    warps: int          # consumer warps per block (K2: plus one producer)
     runs: int           # column runs of 32*cols per direction
     pad: int            # padding columns of a staged or rc row
-    row_bytes: int      # bytes of one padded staged row (16-multiple)
+    row_bytes: int      # bytes of one padded staged row (K3: 0)
     conv_run: int       # R: consecutive conv outputs a lane owns
     conv_passes: int    # P: runs of 32*R outputs per direction
     e_slot: int         # elements of one direction's slot
@@ -490,17 +492,24 @@ class PipelineTile(NamedTuple):
 
 
 def pipeline_geometry(n: int, itemsize: int, op: str, m_block: int,
-                      stage_rows: int | None = None) -> PipelineTile:
-    """K2's tile with D = ``m_block`` directions per block, its ring's
-    stages capped at ``stage_rows`` rows (N by default): the layout of
+                      stage_rows: int | None = None, source: str = "image",
+                      rows: int | None = None) -> PipelineTile:
+    """The tile with D = ``m_block`` directions per block: the layout of
     its shared memory -- the barriers, the rf rows (conv: D + 1 of N),
-    then the larger of the D direction slots and the ring of image stages
-    that aliases them.  A conv slot holds its direction's operand row
-    extended to columns -(N-1) .. 32R*P, then its padded rc row (for P > 1
-    runs behind the operand's columns, which later runs still read); a
-    mul or none slot holds the padded rc row.  :func:`pipeline_tile`
-    chooses D; ``chip_smoke.py``'s edges and sweeps build their tiles
-    here."""
+    then the D direction slots.  A conv slot holds its direction's
+    operand row extended to columns -(N-1) .. 32R*P, then its padded rc
+    row (for P > 1 runs behind the operand's columns, which later runs
+    still read); a mul or none slot holds the padded rc row.
+
+    ``source="image"`` is K2's: a ring of image stages, capped at
+    ``stage_rows`` rows (N by default), aliases the slots, and its
+    consumer warps hold the forward's D directions; the blocks of an
+    image cover its N + 1 directions.  ``source="proj"`` is K3's: no
+    forward and no ring, so the warps are the most that the inverse's
+    items of one output row band can use (:data:`PIPE_WARPS` at most),
+    and the blocks cover the shard's ``rows`` rows.  :func:`pipeline_tile`
+    and :func:`tail_tile` choose D; ``chip_smoke.py``'s edges and sweeps
+    build their tiles here."""
     cols = skew_cols(n)
     items = PIPE_ITEMS[itemsize]
     runs = -(-n // (32 * cols))
@@ -516,17 +525,26 @@ def pipeline_geometry(n: int, itemsize: int, op: str, m_block: int,
     else:
         e_slot, rc_off, rf = n + pad, 0, 0
     area = _align16(d * e_slot * itemsize)
-    row = skew_row_bytes(n, cols, itemsize)
-    h, slots = _ring(area // row, n, n if stage_rows is None
-                     else int(stage_rows))
+    if source == "image":
+        row = skew_row_bytes(n, cols, itemsize)
+        h, slots = _ring(area // row, n, n if stage_rows is None
+                         else int(stage_rows))
+        warps = _skew_warps(d, n, runs, items)
+        covered = n + 1
+    elif source == "proj":
+        row = h = slots = 0
+        warps = min(PIPE_WARPS, -(-n * runs // items))
+        covered = int(rows)
+    else:
+        raise ValueError(f"pipeline source must be 'image' or 'proj', got "
+                         f"{source!r}")
     return PipelineTile(stage_rows=h, slots=slots, m_block=d, cols=cols,
-                        items=items, warps=_skew_warps(d, n, runs, items),
-                        runs=runs, pad=pad, row_bytes=row, conv_run=r,
-                        conv_passes=passes, e_slot=e_slot, rc_off=rc_off,
-                        rf_bytes=rf,
+                        items=items, warps=warps, runs=runs, pad=pad,
+                        row_bytes=row, conv_run=r, conv_passes=passes,
+                        e_slot=e_slot, rc_off=rc_off, rf_bytes=rf,
                         smem=STREAM_BARRIER_BYTES + rf + max(
                             area, slots * h * row),
-                        blocks=-(-(n + 1) // d))
+                        blocks=-(-covered // d))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -557,6 +575,34 @@ def pipeline_tile(n: int, itemsize: int, m_block: int,
             f"shared memory")
     blocks = -(-(n + 1) // d)
     return pipeline_geometry(n, itemsize, op, -(-(n + 1) // blocks))
+
+
+@functools.lru_cache(maxsize=1024)
+def tail_tile(n: int, itemsize: int, m_block: int, op: str,
+              rows: int) -> PipelineTile:
+    """K3's geometry (:class:`PipelineTile` with ``source="proj"``, laid
+    out by :func:`pipeline_geometry`) for a shard of ``rows`` direction
+    rows at N.
+
+    One block per SM, as K2's, with no forward and no ring: D is the
+    most directions that ``m_block``, the shard's rows, N + 1 and the
+    227 KB of shared memory (D slots, plus D + 1 rf rows for conv)
+    allow, then spread evenly over the blocks of an image.  Raises
+    ValueError when not one direction fits.  Integer results depend on
+    none of it."""
+    d = min(int(m_block), int(rows), n + 1)
+    while d >= 1 and pipeline_geometry(n, itemsize, op, d, source="proj",
+                                       rows=rows).smem > STREAM_SMEM_BUDGET:
+        d -= 1
+    if d < 1:
+        raise ValueError(
+            f"one direction of N={n} {itemsize}-byte values (with its "
+            f"operand and padded rows for op={op!r}) does not fit the "
+            f"pipeline tail kernel's {STREAM_SMEM_BUDGET}-byte shared "
+            f"memory")
+    blocks = -(-int(rows) // d)
+    return pipeline_geometry(n, itemsize, op, -(-int(rows) // blocks),
+                             source="proj", rows=rows)
 
 
 def wasted_direction_rows(n: int, m_block: int, forward: bool = True) -> int:

@@ -202,7 +202,9 @@ def test_smem_blocks_cap_m_block_and_reject_rows_that_do_not_fit():
     rf rows and each direction's operand window, then its padded rc row;
     mul/none the padded rc rows.  Directions per block, spread evenly
     over the blocks of an image, and the shared bytes of one block per
-    SM.  K3 keeps its own 113 KB budget (``tail_smem_rows``)."""
+    SM.  K3's tile (``tuning.tail_tile``) has the same layout without
+    the ring: at world size 1 (all 252 directions) and for a 63-row
+    shard of a 4-rank mesh, the same D and shared bytes as K2's."""
     def tile(n, itemsize, m_block, op):
         t = TT.pipeline_tile(n, itemsize, m_block, op)
         return t.m_block, t.blocks, t.smem
@@ -213,11 +215,18 @@ def test_smem_blocks_cap_m_block_and_reject_rows_that_do_not_fit():
     assert tile(5, 4, 100, "none") == (6, 1, 1056)       # capped at N+1
     with pytest.raises(ValueError, match="does not fit"):
         TT.pipeline_tile(40009, 8, 64, "conv")
-    assert P.TAIL_SMEM_BUDGET == 113 * 1024
-    assert P.tail_smem_rows(251, 4, 64, 252, "conv") == 38
-    assert P.tail_smem_rows(251, 4, 64, 63, "mul") == 63
+    def tail(op, rows):
+        t = TT.tail_tile(251, 4, 64, op, rows)
+        return t.m_block, t.blocks, t.smem
+    assert tail("conv", 252) == (63, 4, 200032)
+    assert tail("mul", 252) == (63, 4, 127712)
+    assert tail("none", 252) == (63, 4, 127712)
+    assert tail("conv", 63) == (63, 1, 200032)
+    assert tail("mul", 63) == (63, 1, 127712)
+    assert tail("none", 63) == (63, 1, 127712)
+    assert TT.tail_tile(251, 4, 128, "mul", 252).m_block == 84  # past 64
     with pytest.raises(ValueError, match="does not fit"):
-        P.tail_smem_rows(40009, 8, 64, 4, "conv")
+        TT.tail_tile(40009, 8, 64, "conv", 4)
 
 
 def test_pipeline_tail_shard_partials_rebuild_the_pipeline():

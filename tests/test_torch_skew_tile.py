@@ -1,4 +1,4 @@
-"""The register tile that K1 (``csrc/sfdprt.cu``) and K2
+"""The register tile that K1 (``csrc/sfdprt.cu``), K2 and K3
 (``csrc/pipeline.cu``) share (``csrc/skew_tile.cuh``), as pure arithmetic
 on the CPU.
 
@@ -10,7 +10,9 @@ kernels' thread maps: every output is covered exactly once, every
 window stays inside its padded row and loads the column the skew-sum
 needs, K2's conv window (a ring of R registers rotated by unrolling)
 computes the circular convolution, and its rc rows are written only
-where no later read of the direction's slot falls.
+where no later read of the direction's slot falls.  K3 is K2 from the op
+on: its tile comes from the same layout, and its blocks over a shard of
+direction rows are modelled the same way.
 """
 import numpy as np
 import pytest
@@ -221,30 +223,68 @@ def test_cuda_sources_match_the_host_tiles():
                                   ] + ["kCount"]
     assert _c_tile_fields(k2) == [_camel(f) for f in
                                   TT.PipelineTile._fields] + ["kCount"]
+    # K3 takes the same PipelineTile through the same enum: its entry takes
+    # the int array, its launch reads every field (read_tile, op_stages_ok)
+    # and dispatches on K as K2's does
+    import re
+    assert re.search(r'extern "C" int pipeline_tail_launch\([^)]*'
+                     r'const int\* tile', k2)
+    tail = k2[k2.index("int launch_tail_checked("):]
+    tail = tail[:tail.index("\n}\n")]
+    for call in ("read_tile(t, ", "op_stages_ok<T>(geo, t)", "by_cols(",
+                 "launch_tail<T, decltype(k)::value>"):
+        assert call in tail
+    used = set(re.findall(r"tile::(k\w+)", k2)) - {"kCount"}
+    assert used == {_camel(f) for f in TT.PipelineTile._fields}
+    assert "pipeline_tail_kernel(" in k2 and not any(
+        f"{old}(" in k2 for old in ("load_rows", "apply_op", "write_aux",
+                                     "inverse_add"))
 
 
 # ---------------------------------------------------------------------------
 # K2
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("op,itemsize,want", [
-    ("conv", 4, (33, 2, 63, 11, 4, 538, 0, 200032)),
-    ("mul", 4, (31, 2, 63, 11, 4, 506, 0, 127712)),
-    ("none", 4, (31, 2, 63, 11, 4, 506, 0, 127712)),
-    ("conv", 8, (19, 2, 36, 9, 7, 538, 0, 229440))])
-def test_pipeline_tile_fits_one_block_per_sm(op, itemsize, want):
+@pytest.mark.parametrize("op,itemsize,want,rows", [
+    pytest.param("conv", 4, (33, 2, 63, 11, 4, 538, 0, 200032), None,
+                 id="conv-4-want0"),
+    pytest.param("mul", 4, (31, 2, 63, 11, 4, 506, 0, 127712), None,
+                 id="mul-4-want1"),
+    pytest.param("none", 4, (31, 2, 63, 11, 4, 506, 0, 127712), None,
+                 id="none-4-want2"),
+    pytest.param("conv", 8, (19, 2, 36, 9, 7, 538, 0, 229440), None,
+                 id="conv-8-want3"),
+    # K3 at world size 1 (all 252 directions) and on a 63-row shard
+    pytest.param("conv", 4, (0, 0, 63, 11, 4, 538, 0, 200032), 252,
+                 id="proj-conv-4-252"),
+    pytest.param("mul", 4, (0, 0, 63, 11, 4, 506, 0, 127712), 252,
+                 id="proj-mul-4-252"),
+    pytest.param("none", 4, (0, 0, 63, 11, 1, 506, 0, 127712), 63,
+                 id="proj-none-4-63"),
+    pytest.param("conv", 8, (0, 0, 36, 11, 7, 538, 0, 229440), 252,
+                 id="proj-conv-8-252")])
+def test_pipeline_tile_fits_one_block_per_sm(op, itemsize, want, rows):
     """(stage rows, slots, directions per block, consumer warps, blocks
     per image, slot elements, rc offset, shared bytes) at radon_251 with
     the table's m_block: one block per SM holds its registers and its
     227 KB; the slots hold the operand window and then the padded rc
-    row; the ring fits in what it aliases."""
+    row; the ring fits in what it aliases.  K3 (``rows`` of a shard):
+    the same layout with no ring, the warps the inverse's items can use,
+    and blocks of D that cover the shard's rows."""
     n = 251
     m_block = TT.pipeline_block_spec(n)[0]
-    t = TT.pipeline_tile(n, itemsize, m_block, op)
+    if rows is None:
+        t = TT.pipeline_tile(n, itemsize, m_block, op)
+        covered = n + 1
+        assert t.warps * t.items >= min(t.m_block, n) * t.runs
+    else:
+        t = TT.tail_tile(n, itemsize, m_block, op, rows)
+        covered = rows
+        assert t.stage_rows == t.slots == t.row_bytes == 0
+        assert t.warps == min(TT.PIPE_WARPS, -(-n * t.runs // t.items))
     assert (t.stage_rows, t.slots, t.m_block, t.warps, t.blocks, t.e_slot,
             t.rc_off, t.smem) == want
     assert (t.warps + 1) * 32 * TT.PIPE_THREAD_REGS <= 65536
     assert t.warps <= TT.PIPE_WARPS and t.m_block <= m_block
-    assert t.warps * t.items >= min(t.m_block, n) * t.runs
     assert t.smem <= SMEM_MAX
     area = -(-t.m_block * t.e_slot * itemsize // 16) * 16
     assert t.smem == BARRIERS + t.rf_bytes + max(
@@ -253,7 +293,7 @@ def test_pipeline_tile_fits_one_block_per_sm(op, itemsize, want):
     if op == "conv":
         assert t.rf_bytes >= (t.m_block + 1) * n * itemsize
         assert t.e_slot >= n - 1 + 32 * t.conv_run * t.conv_passes
-    assert t.blocks * t.m_block >= n + 1 > (t.blocks - 1) * t.m_block
+    assert t.blocks * t.m_block >= covered > (t.blocks - 1) * t.m_block
 
 
 def test_pipeline_tile_caps_and_raises():
@@ -352,19 +392,89 @@ def test_conv_rc_rows_are_written_behind_the_reads(n, itemsize):
         order += 1
 
 
-@pytest.mark.parametrize("n,op", [(5, "conv"), (13, "mul"), (31, "none"),
-                                  (61, "conv"), (251, "conv"),
-                                  (251, "none"), (421, "conv")])
-def test_pipeline_thread_map_covers_each_output_once(n, op):
+def _inverse_covers_once(n, t, m0, ms, rng):
+    """One block's inverse on tile ``t``: its items (output row i, column
+    run) in passes of warps x items cover each (i, j) once, and each
+    window over the block's ``ms`` rc rows (sign -1, row offset m0)
+    loads column <j - (m0 + ml)*i>_N inside the padded row."""
+    out = np.zeros((n, n), dtype=np.int64)
+    total = n * t.runs
+    for qb in range(0, total, t.warps * t.items):
+        q = qb + np.arange(t.warps * t.items)
+        live = q[q < total]
+        i = np.repeat(live // t.runs, 32 * t.cols)
+        c = np.repeat(live % t.runs, 32 * t.cols)
+        lane_j = np.tile(np.arange(32 * t.cols), len(live))
+        j = 32 * t.cols * c + lane_j
+        keep = j < n
+        np.add.at(out, (i[keep], j[keep]), 1)
+        if qb == 0 or n <= 61:
+            pick = rng.choice(keep.sum(), min(keep.sum(), 30),
+                              replace=False)
+            _check_windows(n, t.cols, i[keep][pick], j[keep][pick], -1,
+                           m0, range(min(ms, 8)))
+    assert (out == 1).all()
+
+
+#: K2's cases: (N, op)
+K2_MAP_CASES = [(5, "conv"), (13, "mul"), (31, "none"), (61, "conv"),
+                (251, "conv"), (251, "none"), (421, "conv")]
+#: K3's shards: (N, op, row_offset, rows, m_block) -- row_offset 0, a
+#: middle shard, one that straddles N (its last rows are padding) and one
+#: of padding only; m_block 3 splits a shard into blocks whose first
+#: direction is no multiple of D
+K3_MAP_CASES = [
+    (5, "conv", 0, 2, 6), (5, "conv", 2, 2, 6), (5, "mul", 4, 3, 6),
+    (5, "none", 6, 2, 6),
+    (13, "conv", 0, 5, 14), (13, "none", 5, 5, 3), (13, "mul", 10, 5, 3),
+    (13, "conv", 15, 5, 14),
+    (31, "mul", 0, 8, 3), (31, "conv", 8, 8, 32), (31, "none", 29, 8, 3),
+    (31, "conv", 32, 8, 32),
+    (251, "conv", 189, 64, 64)]
+
+
+@pytest.mark.parametrize("n,op,shard", [
+    pytest.param(n, op, None, id=f"{n}-{op}") for n, op in K2_MAP_CASES] + [
+    pytest.param(n, op, (off, rows, mb),
+                 id=f"proj-{n}-{op}-off{off}-rows{rows}-m{mb}")
+    for n, op, off, rows, mb in K3_MAP_CASES])
+def test_pipeline_thread_map_covers_each_output_once(n, op, shard):
     """K2's three stages on its tile: the forward items cover each
     direction m < N of the image exactly once (row N by row sums in the
     last block); the conv's warps cover the block's directions; the
     inverse's items (output row i, column run) in passes of warps x items
     cover each (i, j) once per block, and each window over the block's rc
     rows (sign -1, row offset m0) loads column <j - (m0 + ml)*i>_N inside
-    the padded row."""
-    t = TT.pipeline_tile(n, 4, TT.pipeline_block_spec(n)[0], op)
+    the padded row.  K3 on a ``shard`` (row_offset, rows, m_block): its
+    blocks of D rows hold each of the shard's rows of global direction
+    <= N exactly once (a block of padding only returns at once), aux
+    rows 0 and N come from the one block that holds them, the conv's
+    warps cover each block's directions, and each block with directions
+    < N runs the same inverse at its global row offset."""
     rng = np.random.default_rng(n)
+    if shard is not None:
+        off, rows, m_block = shard
+        t = TT.tail_tile(n, 4, m_block, op, rows)
+        assert t.stage_rows == t.slots == 0
+        assert t.blocks * t.m_block >= rows > (t.blocks - 1) * t.m_block
+        held, aux_rows = [], []
+        for blk in range(t.blocks):
+            m0 = off + blk * t.m_block
+            if m0 > n:
+                continue
+            mc = min(t.m_block, rows - blk * t.m_block, n + 1 - m0)
+            ms = max(0, min(mc, n - m0))
+            held += range(m0, m0 + mc)
+            aux_rows += [m for m in (0, n) if m0 <= m < m0 + mc]
+            conv_dirs = sorted(ml for w in range(t.warps)
+                               for ml in range(w, mc, t.warps))
+            assert conv_dirs == list(range(mc))
+            if ms:
+                _inverse_covers_once(n, t, m0, ms, rng)
+        assert held == list(range(off, min(off + rows, n + 1)))
+        assert aux_rows == [m for m in (0, n) if off <= m < off + rows]
+        return
+    t = TT.pipeline_tile(n, 4, TT.pipeline_block_spec(n)[0], op)
     hits = np.zeros((n, n), dtype=np.int64)
     for blk in range(t.blocks):
         m0 = blk * t.m_block
@@ -375,25 +485,8 @@ def test_pipeline_thread_map_covers_each_output_once(n, op):
         conv_dirs = sorted(ml for w in range(t.warps)
                            for ml in range(w, mc, t.warps))
         assert conv_dirs == list(range(mc))
-        if ms == 0:
-            continue
-        out = np.zeros((n, n), dtype=np.int64)
-        total = n * t.runs
-        for qb in range(0, total, t.warps * t.items):
-            q = qb + np.arange(t.warps * t.items)
-            live = q[q < total]
-            i = np.repeat(live // t.runs, 32 * t.cols)
-            c = np.repeat(live % t.runs, 32 * t.cols)
-            lane_j = np.tile(np.arange(32 * t.cols), len(live))
-            j = 32 * t.cols * c + lane_j
-            keep = j < n
-            np.add.at(out, (i[keep], j[keep]), 1)
-            if qb == 0 or n <= 61:
-                pick = rng.choice(keep.sum(), min(keep.sum(), 30),
-                                  replace=False)
-                _check_windows(n, t.cols, i[keep][pick], j[keep][pick], -1,
-                               m0, range(min(ms, 8)))
-        assert (out == 1).all()
+        if ms:
+            _inverse_covers_once(n, t, m0, ms, rng)
     assert (hits == 1).all()
 
 
