@@ -6,7 +6,7 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-four main paths -- three of the ``radon_251`` configuration (256 phantom
+five main paths -- four of the ``radon_251`` configuration (256 phantom
 images of 251 x 251, int32) and the giant-N path -- each with the launch
 counts set to 0 just before it and read just after:
 
@@ -29,7 +29,16 @@ counts set to 0 just before it and read just after:
    with no K2 launch), the fused filter, the round trip and a float32
    gradient.  A further check runs each rank's step of the D = 4 mesh
    pipeline in turn on the one card (K1 and K3 at their row offsets,
-   the collectives as sums), against K2 and a numpy oracle.
+   the collectives as sums), against K2 and a numpy oracle; and one
+   masked CG solve on the mesh (K1 and K3 each iteration, no K2);
+5. reconstruction (``radon.solve`` through float32 K1 and K2): the
+   unmasked Sherman-Morrison solve (one K1 inverse, exact to the
+   phantoms), the masked CG solve with 4 directions lost (one K2 ``mul``
+   per iteration, equal to the plain-backend solve), the reference
+   bench's N = 13 ``lstsq`` gate, fixed-count runs of preconditioned CG,
+   LSQR and Landweber (their launches per iteration), a float32
+   gradient's adjoint identity and per-image 3-D masks; timed per CG
+   iteration beside the K2 ``mul`` kernel.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
@@ -1869,6 +1878,7 @@ def mesh_main_path_phase() -> dict:
         f"exact, int32 +-2^28 forward/inverse (every reduce) and pipeline "
         f"ops wrap as K1/K2 do, float32 grad == op.T (max |err| "
         f"{err:.3g})")
+    mesh_solve_check(mesh)
     return launches
 
 
@@ -2059,6 +2069,522 @@ def tail_timing_phase(launches: dict, worst: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 8: reconstruction (radon.solve through float32 K1 and K2)
+# ---------------------------------------------------------------------------
+#: float32 adds per second: 132 SMs x 128 FP32 lanes x 1.98 GHz
+FP32_ADDS_PER_S = 132 * 128 * 1.98e9
+#: directions a detector loses (examples/reconstruction.py --drop 4),
+#: drawn from numpy.random.default_rng(0)
+SOLVE_DROP = 4
+SOLVE_TOL = 1e-6
+SOLVE_MAXITER = 100
+#: iterations of the fixed-count runs (tol = 0, as the reference's
+#: benchmarks/bench_recon.py times them)
+SOLVE_FIXED = 10
+#: ||M x - b|| / ||b|| per image of a masked solve of consistent data
+#: (b = M f): float32 rounding leaves ~1e-6; zero-filling the lost
+#: directions leaves ~1e-1
+SOLVE_RESIDUAL_BOUND = 1e-4
+#: images that the plain-backend solve (method="gather") repeats, and the
+#: agreement asked of them, relative to the plain image's peak
+SOLVE_PLAIN_B = 4
+SOLVE_IMAGE_REL = 1e-3
+#: |<L b, c> - <b, L^T c>| / |<L b, c>| of the gradient (L = the solve)
+SOLVE_ADJOINT_REL = 1e-4
+#: the reference bench's oracle gate (benchmarks/bench_recon.py:37-55)
+ORACLE_N, ORACLE_MISSING = 13, (2, 7)
+SOLVE_TIMING_REPS = 5
+
+
+def counted(fn):
+    """``fn()`` with every launch count and the solver's iteration counts
+    set to 0 just before it, under ``retrace_guard(max_traces=0)`` (a warm
+    run builds nothing), and read just after: ``(result, counts)``."""
+    import importlib
+    import torch
+    from repro_torch import radon
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    solve_mod = importlib.import_module("repro_torch.radon.solve")
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    solve_mod.reset_iteration_counts()
+    with radon.retrace_guard(max_traces=0):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {"k1": dict(S.MODE_LAUNCHES), "k2": dict(P.OP_LAUNCHES),
+                 "k3": dict(P.TAIL_OP_LAUNCHES),
+                 "iters": dict(solve_mod.ITERATIONS)}
+
+
+def expect_launches(label: str, got: dict, *, forward=0, inverse=0,
+                    core=0, mul=0, tail_mul=0) -> None:
+    want = {"k1": {"core": core, "forward": forward, "inverse": inverse},
+            "k2": {"none": 0, "mul": mul, "conv": 0},
+            "k3": {"none": 0, "mul": tail_mul, "conv": 0}}
+    have = {k: got[k] for k in want}
+    if have != want:
+        fail(f"{label}: launches {have}, expected {want}")
+
+
+def solve_residual(m, x, b) -> float:
+    """The largest per-image ||M x - b|| / ||b||."""
+    import torch
+    with torch.no_grad():
+        res = m(x) - b
+    num = res.double().flatten(-2).norm(dim=-1)
+    den = b.double().flatten(-2).norm(dim=-1).clamp_min(1e-300)
+    return float((num / den).max())
+
+
+def check_solve_image(label: str, got, want) -> float:
+    """A solve's image against another's, relative to the latter's peak."""
+    import torch
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite image")
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got.double() - want.double()).abs().max()) / scale
+    if err > SOLVE_IMAGE_REL:
+        fail(f"{label}: max |err| / peak {err} > {SOLVE_IMAGE_REL}")
+    return err
+
+
+def solve_problem(mesh=None) -> dict:
+    """The radon_251 reconstruction problem on the card (on ``mesh`` when
+    given): 256 phantoms, their int32 operator, the mask of SOLVE_DROP
+    lost directions, the masked operator M and the measured b = M f."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.configs.radon_251 import config
+    from repro_torch.data.synthetic import radon_images
+
+    cfg = config()
+    n, b = cfg.n, cfg.batch
+    imgs = torch.from_numpy(radon_images(n, b, kind="phantom")).to("cuda")
+    with (radon.config(mesh=mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        op = radon.DPRT(tuple(imgs.shape), torch.int32)
+    missing = np.random.default_rng(0).choice(n + 1, SOLVE_DROP,
+                                              replace=False)
+    mask = radon.direction_mask(n, missing)
+    m = radon.MaskedDPRT(op, mask=mask)
+    return {"n": n, "b": b, "imgs": imgs, "op": op, "mask": mask,
+            "missing": sorted(int(v) for v in missing), "m": m,
+            "bm": m(imgs)}
+
+
+def plain_solve(mask, bm, **kw):
+    """The same masked CG solve of the first SOLVE_PLAIN_B images through
+    the plain torch backend (``gather``, the reference's oracle backend)
+    on the card: no kernel of the port runs."""
+    import torch
+    from repro_torch import radon
+    n = bm.shape[-1]
+    op = radon.DPRT((SOLVE_PLAIN_B, n, n), torch.int32, method="gather")
+    mp = radon.MaskedDPRT(op, mask=mask[:SOLVE_PLAIN_B] if mask.ndim == 3
+                          else mask)
+    return radon.solve(mp, bm[:SOLVE_PLAIN_B], "cg", **kw)
+
+
+def solve_main_path_phase() -> dict:
+    """The reconstruction path at radon_251 on the card, through
+    ``radon.solve``: the unmasked Sherman-Morrison solve (one K1
+    inverse), the masked CG solve (one K2 ``mul`` per iteration, equal to
+    the plain-backend solve), the reference bench's N = 13 oracle gate,
+    fixed-count runs of CG with both preconditioners, LSQR and Landweber,
+    a float32 gradient's adjoint identity at B = 4 and per-image 3-D
+    masks at B = 256.  Each run is ``counted``; returns the launches of
+    all of them (every one float32) and the problem."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+
+    pb = solve_problem()
+    n, b, imgs, op, mask, m, bm = (pb[k] for k in (
+        "n", "b", "imgs", "op", "mask", "m", "bm"))
+    r = op(imgs)
+    if m.plan.method != "cuda" or m.fdtype != torch.float32:
+        fail(f"the masked operator resolved to {m.plan.method!r} "
+             f"{m.fdtype}, not the float32 cuda kernels")
+    rng = np.random.default_rng(8)
+    filt = radon.ProjectionFilter(torch.full((n + 1, n), 1.0 / (n + 1),
+                                             device="cuda"))
+    masks3 = torch.stack([radon.direction_mask(
+        n, rng.choice(n + 1, SOLVE_DROP, replace=False)) for _ in range(b)])
+    m3 = radon.MaskedDPRT(op, mask=masks3)
+    b3 = m3(imgs)
+    m4 = radon.MaskedDPRT(radon.DPRT((SOLVE_PLAIN_B, n, n), torch.int32),
+                          mask=mask)
+    b4 = m4(imgs[:SOLVE_PLAIN_B])
+    c4 = m4.normal_rhs(torch.from_numpy(rng.standard_normal(
+        (SOLVE_PLAIN_B, n + 1, n), dtype=np.float32)).to("cuda"))
+    x13 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 64, (ORACLE_N, ORACLE_N)).astype(np.int32)).to("cuda")
+    op13 = radon.DPRT((ORACLE_N, ORACLE_N), torch.int32)
+    m13 = radon.MaskedDPRT(op13, mask=radon.direction_mask(
+        ORACLE_N, ORACLE_MISSING))
+    b13 = m13(x13)
+    fixed = {"cg+sherman": dict(method="cg", precond="sherman"),
+             "cg+filter": dict(method="cg", precond=filt),
+             "lsqr": dict(method="lsqr"),
+             "landweber": dict(method="landweber")}
+    main_kw = dict(tol=SOLVE_TOL, maxiter=SOLVE_MAXITER)
+    # warm-up: the float32 plans, the solver bodies and their kernels
+    radon.solve(op, r)
+    radon.solve(m, bm, **main_kw)
+    radon.solve(m3, b3, **main_kw)
+    radon.solve(op13, op13(x13))
+    radon.solve(m13, b13, "cg", tol=1e-7, maxiter=300)
+    for kw in fixed.values():
+        radon.solve(m, bm, tol=0.0, maxiter=SOLVE_FIXED, **kw)
+    xw = b4.clone().requires_grad_(True)
+    (radon.solve(m4, xw, **main_kw).image * c4).sum().backward()
+    torch.cuda.synchronize()
+    kernel_builds = radon.trace_count(kind="kernel")
+    totals = {"k1": {}, "k2": {}}
+
+    def run(fn):
+        out, got = counted(fn)
+        for k in totals:
+            for key, v in got[k].items():
+                totals[k][key] = totals[k].get(key, 0) + v
+        return out, got
+
+    # -- unmasked: the Sherman-Morrison closed form -------------------------
+    res, got = run(lambda: radon.solve(op, r))
+    expect_launches("sherman", got, inverse=1)
+    if int(res.iterations) != 0 or not bool(res.converged):
+        fail(f"sherman took {int(res.iterations)} iterations")
+    if not torch.equal(res.image.round().to(torch.int32), imgs):
+        fail("the unmasked solve does not round to the phantoms")
+    sherman_err = float((res.image - imgs).abs().max())
+    # -- masked CG: one K2 mul per iteration -------------------------------
+    res, got = run(lambda: radon.solve(m, bm, **main_kw))
+    k_main = int(res.iterations)
+    expect_launches("masked CG", got, inverse=1, mul=k_main)
+    if got["iters"]["cg"] != k_main or k_main < 1:
+        fail(f"masked CG: {k_main} iterations, loop counted "
+             f"{got['iters']}")
+    resid = solve_residual(m, res.image, bm)
+    if resid > SOLVE_RESIDUAL_BOUND:
+        fail(f"masked CG: ||Mx - b|| / ||b|| {resid} > "
+             f"{SOLVE_RESIDUAL_BOUND}")
+    plain = plain_solve(mask, bm, **main_kw)
+    plain_err = check_solve_image("masked CG vs the plain-backend solve",
+                                  res.image[:SOLVE_PLAIN_B], plain.image)
+    log(f"solve path: N={n} B={b} sherman exact to the phantoms (max "
+        f"|err| {sherman_err:.3g}, 1 K1 inverse); masked CG without "
+        f"directions {pb['missing']}: {k_main} iterations = {k_main} K2 mul "
+        f"launches, 1 K1 inverse, converged {bool(res.converged)}, max "
+        f"||Mx-b||/||b|| {resid:.3g} (bound {SOLVE_RESIDUAL_BOUND}), vs "
+        f"the plain-backend solve of {SOLVE_PLAIN_B} images {plain_err:.3g}"
+        f" of the peak (bound {SOLVE_IMAGE_REL}; it took "
+        f"{int(plain.iterations)} iterations)")
+    # -- the reference bench's oracle gate at N = 13, through the kernels --
+    res13, got = run(lambda: radon.solve(m13, b13, "cg", tol=1e-7,
+                                         maxiter=300))
+    expect_launches("N=13 oracle CG", got, inverse=1,
+                    mul=int(res13.iterations))
+    a13 = m13.as_matrix().double().cpu().numpy()
+    want = np.linalg.lstsq(a13, b13.double().cpu().numpy().ravel(),
+                           rcond=None)[0]
+    got13 = res13.image.double().cpu().numpy().ravel()
+    if not np.allclose(got13, want, rtol=1e-4,
+                       atol=1e-4 * max(1.0, np.abs(want).max())):
+        fail(f"N=13 CG vs lstsq: max |err| {np.abs(got13 - want).max()}")
+    full13 = radon.solve(op13, op13(x13))
+    if int(full13.iterations) != 0 or not torch.allclose(
+            full13.image, x13.float(), atol=1e-3):
+        fail("N=13 sherman gate")
+    log(f"solve path: N={ORACLE_N} missing {list(ORACLE_MISSING)} CG == "
+        f"lstsq of m.as_matrix() (rtol 1e-4; max |err| "
+        f"{np.abs(got13 - want).max():.3g}) in {int(res13.iterations)} K2 "
+        f"mul launches; sherman gate exact")
+    # -- fixed-count runs: launches per iteration of each method -----------
+    per_iter = {"cg+sherman": dict(mul=1), "cg+filter": dict(mul=2),
+                "lsqr": dict(forward=1, inverse=1),
+                "landweber": dict(mul=1)}
+    # once per solve: the rhs's inverse (LSQR: its first A^T), and the
+    # filter's first preconditioning
+    once = {"cg+filter": dict(inverse=1, mul=1)}
+    fixed_iters = {}
+    for label, kw in fixed.items():
+        res, got = run(lambda: radon.solve(m, bm, tol=0.0,
+                                           maxiter=SOLVE_FIXED, **kw))
+        k = int(res.iterations)
+        want_l = dict(once.get(label, {"inverse": 1}))
+        for key, v in per_iter[label].items():
+            want_l[key] = want_l.get(key, 0) + v * k
+        expect_launches(f"fixed {label}", got, **want_l)
+        if got["iters"][kw["method"]] != k or k < 1:
+            fail(f"fixed {label}: {k} iterations, loop counted "
+                 f"{got['iters']}")
+        if not bool(torch.isfinite(res.image).all()):
+            fail(f"fixed {label}: non-finite image")
+        fixed_iters[label] = k
+    log(f"solve path: fixed runs (tol 0, maxiter {SOLVE_FIXED}) iterations "
+        f"{fixed_iters}; per iteration 1 K2 mul (CG+sherman, Landweber), 2 "
+        f"(CG+filter), 1 K1 forward + 1 K1 inverse (LSQR)")
+    # -- a float32 gradient through the masked CG solve (B = 4) ------------
+    x = b4.clone().requires_grad_(True)
+    res, got = run(lambda: radon.solve(m4, x, **main_kw))
+    k_fwd = int(res.iterations)
+    expect_launches("gradient's solve", got, inverse=1, mul=k_fwd)
+    loss = (res.image * c4).sum()
+    _, got = run(loss.backward)
+    k_bwd = got["iters"]["cg"]
+    expect_launches("gradient's backward", got, forward=1, mul=k_bwd)
+    with torch.no_grad():
+        lhs = float((res.image.double() * c4.double()).sum())
+        rhs = float((b4.double() * x.grad.double()).sum())
+    adj = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+    if k_bwd < 1 or adj > SOLVE_ADJOINT_REL:
+        fail(f"gradient: <L b, c> {lhs} vs <b, L^T c> {rhs} (rel {adj} > "
+             f"{SOLVE_ADJOINT_REL}), backward iterations {k_bwd}")
+    log(f"solve path: float32 gradient at B={SOLVE_PLAIN_B}: <Lb, c> == "
+        f"<b, L^T c> within {adj:.3g} (bound {SOLVE_ADJOINT_REL}); "
+        f"solve {k_fwd} and backward {k_bwd} iterations, each one K2 mul")
+    # -- per-image 3-D masks at B = 256 ------------------------------------
+    if tuple(m3.d.shape) != (b, n + 1, n) or m3.d.dtype != torch.float32:
+        fail(f"per-image diagonal {tuple(m3.d.shape)} {m3.d.dtype}")
+    res, got = run(lambda: radon.solve(m3, b3, **main_kw))
+    k3 = int(res.iterations)
+    expect_launches("per-image masks", got, inverse=1, mul=k3)
+    resid3 = solve_residual(m3, res.image, b3)
+    if resid3 > SOLVE_RESIDUAL_BOUND:
+        fail(f"per-image masks: ||Mx - b|| / ||b|| {resid3} > "
+             f"{SOLVE_RESIDUAL_BOUND}")
+    err3 = check_solve_image("per-image masks vs the plain-backend solve",
+                             res.image[:SOLVE_PLAIN_B],
+                             plain_solve(masks3, b3, **main_kw).image)
+    if radon.trace_count(kind="kernel") != kernel_builds:
+        fail("the solve path rebuilt a kernel")
+    log(f"solve path: per-image masks ({b}, {n + 1}, {n}) float32 "
+        f"({m3.d.numel() * 4 / 2 ** 20:.1f} MiB): {k3} iterations = {k3} "
+        f"K2 mul launches, max ||Mx-b||/||b|| {resid3:.3g}, vs plain "
+        f"{err3:.3g}; zero builds in every run; launches of the phase "
+        f"{totals}")
+    return {"launches": totals, "problem": pb}
+
+
+def mesh_solve_check(mesh) -> None:
+    """One masked CG solve on the (1, 1) mesh: each iteration K1 forward of
+    the strip + K3 mul (the sharded pipeline), no K2; the image equals
+    the unsharded solve's."""
+    from repro_torch import radon
+
+    pb = solve_problem(mesh)
+    m, bm = pb["m"], pb["bm"]
+    if m.plan.method != "sharded_cuda":
+        fail(f"the mesh solve resolved to {m.plan.method!r}")
+    kw = dict(tol=SOLVE_TOL, maxiter=SOLVE_MAXITER)
+    radon.solve(m, bm, **kw)              # warm: its plans and body
+    res, got = counted(lambda: radon.solve(m, bm, **kw))
+    k = int(res.iterations)
+    # the rhs's inverse on the mesh is K1's core skew-sum and the
+    # epilogue in torch
+    expect_launches("mesh CG", got, core=1, forward=k, tail_mul=k)
+    flat = solve_problem()
+    want = radon.solve(flat["m"], flat["bm"], **kw).image
+    err = check_solve_image("mesh CG vs the unsharded K2 solve", res.image,
+                            want)
+    resid = solve_residual(m, res.image, bm)
+    if resid > SOLVE_RESIDUAL_BOUND:
+        fail(f"mesh CG: ||Mx - b|| / ||b|| {resid} > "
+             f"{SOLVE_RESIDUAL_BOUND}")
+    log(f"mesh path: masked CG {k} iterations = {k} K3 mul + {k} K1 forward "
+        f"launches, 1 K1 core, no K2; vs the unsharded solve {err:.3g} of "
+        f"the peak, max ||Mx-b||/||b|| {resid:.3g}")
+
+
+def solve_sparse_matrix(n: int, kind: str):
+    """The float32 DPRT (``forward``: (N+1)N x N^2) or its exact inverse
+    (``inverse``: N^2 x (N+1)N) as a CSR matrix on the card: one sparse
+    product with it computes K1's float32 function."""
+    import torch
+    ar = torch.arange(n, device="cuda")
+    m, i, j = ar[:, None, None], ar[None, :, None], ar[None, None, :]
+    if kind == "forward":
+        # R(m, d) = sum_i f(i, <d + m i>); R(N, d) = sum_j f(d, j)
+        rows = torch.cat([(m * n + j).expand(n, n, n).reshape(-1),
+                          n * n + ar.repeat_interleave(n)])
+        cols = torch.cat([(i * n + (j + m * i) % n).reshape(-1),
+                          torch.arange(n * n, device="cuda")])
+        vals = torch.ones(rows.numel(), device="cuda")
+        shape = ((n + 1) * n, n * n)
+    else:
+        # f(i, j) = (sum_m R(m, <j - m i>) - S + R(N, i)) / N,
+        # S = sum_d R(0, d)
+        out = torch.arange(n * n, device="cuda")
+        rows = torch.cat([(i * n + j).expand(n, n, n).reshape(-1), out,
+                          out.repeat_interleave(n)])
+        cols = torch.cat([(m * n + (j - m * i) % n).reshape(-1),
+                          n * n + out // n, ar.repeat(n * n)])
+        vals = torch.cat([torch.full((n ** 3 + n * n,), 1.0 / n,
+                                     device="cuda"),
+                          torch.full((n ** 3,), -1.0 / n, device="cuda")])
+        shape = (n * n, (n + 1) * n)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape,
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def solve_timing_phase(solve_info: dict) -> list:
+    """The reconstruction path's kernels in float32 at radon_251 (K2
+    ``mul``, K1 ``inverse`` and ``forward``) against their plain versions,
+    their bounds (float32 adds at 132 x 128 lanes x 1.98 GHz, or bytes
+    over HBM, the larger) and, for K1, the sparse product that computes
+    the same function; and one masked CG iteration at B = 256: ms per
+    iteration by CUDA events and on the host clock (fixed-count solves of
+    1 and SOLVE_FIXED iterations), beside the K2 ``mul`` kernel, and
+    where its device time goes (torch.profiler over one fixed solve)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import radon
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+
+    pb = solve_info["problem"]
+    n, b, m, bm = pb["n"], pb["b"], pb["m"], pb["bm"]
+    launches = solve_info["launches"]
+    x = torch.from_numpy(np.random.default_rng(9).random(
+        (b, n, n), dtype=np.float32)).to("cuda")
+    d2 = (m.d * m.d).contiguous()
+    r = (d2 * bm).contiguous()                # a CG right-hand side's r
+    corr = (r[:, n, :] - r[:, 0, :].sum(1, keepdim=True)).contiguous()
+    torch.cuda.synchronize()
+    item = 4
+    fwd_ops = b * n * n * n + b * n * n
+    inv_ops = b * n * n * n + 2 * b * n * n
+    cases = {
+        "pipeline_kernel[mul,float32]": dict(
+            kernel=lambda: ops.projection_pipeline_cuda(x, "mul", d2),
+            plain=lambda: P.pipeline_plain(x, d2[None], op="mul"),
+            nbytes=item * (2 * b * n * n + 2 * b * n + (n + 1) * n),
+            ops=fwd_ops + b * (n + 1) * n + inv_ops + b * n * n,
+            launches=launches["k2"].get("mul", 0),
+            source="src/repro_torch/kernels/csrc/pipeline.cu",
+            replaces="src/repro/kernels/sfdprt.py:853", sparse=None),
+        "sfdprt_kernel[inverse,float32]": dict(
+            kernel=lambda: ops.idprt_cuda(r),
+            plain=lambda: S.sfdprt_plain(r[:, :n], sign=-1, mode="inverse",
+                                         corr=corr),
+            nbytes=item * (b * (n + 1) * n + b * n * n), ops=inv_ops,
+            launches=launches["k1"].get("inverse", 0),
+            source="src/repro_torch/kernels/csrc/sfdprt.cu",
+            replaces="src/repro/kernels/sfdprt.py:210", sparse="inverse"),
+        "sfdprt_kernel[forward,float32]": dict(
+            kernel=lambda: ops.dprt_cuda(x),
+            plain=lambda: S.sfdprt_plain(x, sign=1, mode="forward"),
+            nbytes=item * (b * n * n + b * (n + 1) * n), ops=fwd_ops,
+            launches=launches["k1"].get("forward", 0),
+            source="src/repro_torch/kernels/csrc/sfdprt.cu",
+            replaces="src/repro/kernels/sfdprt.py:210", sparse="forward"),
+    }
+    rows = []
+    for name, c in cases.items():
+        got = c["kernel"]()
+        want = c["plain"]()
+        torch.cuda.synchronize()
+        tol = None
+        if isinstance(want, tuple):           # K2's plain gives (out, aux)
+            want, aux = want
+            tol = pipeline_tol(got, aux)
+        err = check_close(f"{name} vs plain", got, want, n, tol)
+        k_ms = cuda_ms(c["kernel"])
+        p_ms = cuda_ms(c["plain"], reps=3, warm=1)
+        lib_ms = None
+        if c["sparse"] is not None:
+            a = solve_sparse_matrix(n, c["sparse"])
+            src = x if c["sparse"] == "forward" else r
+            cols = src.reshape(b, -1).t().contiguous()
+            prod = torch.sparse.mm(a, cols).t().reshape(got.shape)
+            check_close(f"{name} vs the sparse product", got, prod, n)
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(a, cols), reps=5,
+                             warm=1)
+            del a, cols, prod
+        bytes_ms = 1e3 * c["nbytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * c["ops"] / FP32_ADDS_PER_S
+        rows.append({
+            "name": name, "route": "cuda", "source": c["source"],
+            "replaces": c["replaces"], "launches": c["launches"],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # K1's float32 function is one sparse product with the DPRT
+            # (or inverse) matrix; no one call computes forward, weights
+            # and inverse
+            "library_ms": lib_ms,
+            "shape": f"N={n} B={b} float32",
+        })
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"timing {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {max(bytes_ms, ops_ms):.4f} ms ({rows[-1]['bound_by']})"
+            f", sparse product {lib}, {c['launches']} launches on the solve "
+            f"path, max |err| {err:.3g}")
+
+    # -- one masked CG iteration at B = 256 --------------------------------
+    def fixed(k):
+        return radon.solve(m, bm, "cg", tol=0.0, maxiter=k)
+
+    per = {}
+    for k in (1, SOLVE_FIXED):
+        iters = int(fixed(k).iterations)
+        ev = cuda_ms(lambda: fixed(k), reps=SOLVE_TIMING_REPS, warm=1)
+        walls = []
+        for _ in range(SOLVE_TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fixed(k)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        per[k] = {"iterations": iters, "event_ms": ev,
+                  "host_ms": statistics.median(walls)}
+    k2_ms = rows[0]["ms"]
+    timing = {"solves": per, "k2_mul_ms": k2_ms}
+    k_one, k_fix = per[1]["iterations"], per[SOLVE_FIXED]["iterations"]
+    if k_fix > k_one:
+        for clock in ("event_ms", "host_ms"):
+            timing[f"{clock}_per_iteration"] = (
+                per[SOLVE_FIXED][clock] - per[1][clock]) / (k_fix - k_one)
+        timing["outside_k2_share"] = 1 - k2_ms / timing[
+            "event_ms_per_iteration"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fixed(SOLVE_FIXED)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_class = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        cls = ("K2" if "pipeline" in key else "K1" if "sfdprt" in key
+               else "memset" if "memset" in key
+               else "reductions" if "reduce" in key else "elementwise")
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+    if by_class:
+        timing["profile"] = {
+            "iterations": int(res.iterations),
+            "device_ms_by_class": by_class, "host_wall_ms": wall_ms,
+            "device_busy_share": sum(by_class.values()) / wall_ms}
+    else:
+        timing["profile"] = "not measured (the profiler saw no device time)"
+    rows[0]["per_cg_iteration"] = timing
+    log(f"timing masked CG at N={n} B={b} (tol 0): {json.dumps(timing)}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2085,11 +2611,13 @@ def main() -> int:
     giant_launches = giant_main_path_phase()
     mesh_launches = mesh_main_path_phase()
     four_shards_phase()
+    solve_info = solve_main_path_phase()
     kernels = timing_phase(launches, worst,
                            pipe_launches["k1"]["forward"])
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
     kernels += stream_timing_phase(giant_launches, stream_worst)
     kernels += tail_timing_phase(mesh_launches, tail_worst)
+    kernels += solve_timing_phase(solve_info)
     pipeline_profile_phase()
     pipeline_profile_phase(mesh=True)
     close_world()

@@ -1,6 +1,14 @@
 """Core DPRT library of the port: primitives, geometry, plans, exact
-convolution and the DPRT-based DFT."""
-from .dprt import (skew_sum, strip_partial, align_partial, is_prime,
+convolution and the DPRT-based DFT.
+
+``dprt`` here is the submodule :mod:`repro_torch.core.dprt`, which is
+callable as the legacy ``dprt(f, method=...)`` shim: the reference's
+``repro.core.dprt`` is that function (shadowing its own submodule), and
+a callable module keeps both ``repro_torch.core.dprt(f)`` and
+``import repro_torch.core.dprt as m`` working."""
+from . import dprt
+from .dprt import (idprt, dprt_batched, idprt_batched, skew_sum,
+                   strip_partial, align_partial, is_prime,
                    next_prime, accum_dtype_for, float_dtype_for,
                    int32_accum_exact, dprt_oracle_np, idprt_oracle_np)
 from .geometry import Geometry, normalize_geometry
@@ -15,6 +23,7 @@ from .conv import (circ_conv2d_dprt, circ_conv2d_direct, circ_conv2d_fft,
 from .dft import dft2_via_dprt, dft2_via_dprt_batched, dft2_reference
 
 __all__ = [
+    "dprt", "idprt", "dprt_batched", "idprt_batched",
     "skew_sum", "strip_partial", "align_partial", "is_prime", "next_prime",
     "accum_dtype_for", "float_dtype_for", "int32_accum_exact",
     "dprt_oracle_np", "idprt_oracle_np",

@@ -29,6 +29,8 @@ floor division (the reference's ``//``), so ``idprt(dprt(f)) == f``.
 """
 from __future__ import annotations
 
+import sys
+import types
 from typing import Optional
 
 import numpy as np
@@ -47,6 +49,10 @@ __all__ = [
     "dtype_name",
     "dprt_oracle_np",
     "idprt_oracle_np",
+    "dprt",
+    "idprt",
+    "dprt_batched",
+    "idprt_batched",
 ]
 
 
@@ -269,6 +275,135 @@ def skew_sum(g: torch.Tensor, sign: int, method: str = "horner",
     from .plan import dispatch_skew_sum  # lazy: plan imports this module
     return dispatch_skew_sum(g, sign, method=method, strip_rows=strip_rows,
                              m_block=m_block, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# legacy per-call-kwarg entry points: thin shims over the operator API
+# (the same numerics, caches and exact autograd as `radon.DPRT(...)`).
+# New code should build operators instead -- these wrappers warn once per
+# process when the legacy knob plumbing is used.
+# ---------------------------------------------------------------------------
+_LEGACY_KNOB_WARNED = False
+
+
+def _warn_legacy_knobs() -> None:
+    global _LEGACY_KNOB_WARNED
+    if _LEGACY_KNOB_WARNED:
+        return
+    _LEGACY_KNOB_WARNED = True
+    import sys
+    import warnings
+    # point the warning at the caller's code: skip however many shim
+    # frames (dprt -> dprt_batched etc.) sit between here and the first
+    # frame outside this module
+    stacklevel, frame = 1, sys._getframe()
+    while frame is not None and frame.f_code.co_filename == __file__:
+        frame = frame.f_back
+        stacklevel += 1
+    warnings.warn(
+        "passing method=/strip_rows=/m_block=/... per call to "
+        "repro_torch.core.dprt functions is deprecated: build an operator "
+        "once with repro_torch.radon.DPRT(shape, dtype, method=..., ...) "
+        "or set an ambient scope with repro_torch.radon.config(...). The "
+        "kwargs keep working (this warns once per process).",
+        DeprecationWarning, stacklevel=stacklevel)
+
+
+def _legacy_operator(shape, dtype, method, strip_rows, m_block, batch_impl,
+                     block_rows, block_batch, mesh, stream_rows=None):
+    """Resolve legacy per-call knobs into a cached radon operator."""
+    if any(k is not None for k in (method, strip_rows, m_block, block_rows,
+                                   stream_rows, block_batch, mesh)
+           ) or batch_impl not in (None, "auto"):
+        _warn_legacy_knobs()
+    from ..radon import DPRT, ambient  # lazy: radon imports this module
+    # the legacy default is method="horner" -- except under a mesh
+    # (explicit or ambient), where "auto" routes to the mesh-aware pick;
+    # ambient scopes override either default
+    mesh = ambient.resolve("mesh", mesh)
+    fallback = "horner" if mesh is None else "auto"
+    return DPRT(shape, dtype,
+                method=ambient.resolve("method", method, fallback),
+                strip_rows=strip_rows, m_block=m_block,
+                batch_impl=batch_impl, block_rows=block_rows,
+                stream_rows=stream_rows, block_batch=block_batch, mesh=mesh)
+
+
+def dprt(f: torch.Tensor, method: Optional[str] = None,
+         strip_rows: Optional[int] = None, m_block: Optional[int] = None,
+         batch_impl: Optional[str] = None, block_rows: Optional[int] = None,
+         block_batch: Optional[int] = None, mesh=None,
+         stream_rows: Optional[int] = None) -> torch.Tensor:
+    """Forward DPRT: (H, W) image (or a (B, H, W) stack) -> (…, P+1, P)
+    projections, exact for integers.  Deprecation shim over
+    ``repro_torch.radon.DPRT(f.shape, f.dtype, ...)``: any geometry
+    (zero-embedded into the smallest prime P >= max(H, W)); unset knobs
+    resolve against the ambient scope, then ``horner``."""
+    op = _legacy_operator(tuple(f.shape), f.dtype, method, strip_rows,
+                          m_block, batch_impl, block_rows, block_batch,
+                          mesh, stream_rows=stream_rows)
+    return op(f)
+
+
+def idprt(r: torch.Tensor, method: Optional[str] = None,
+          strip_rows: Optional[int] = None, m_block: Optional[int] = None,
+          batch_impl: Optional[str] = None, block_rows: Optional[int] = None,
+          block_batch: Optional[int] = None, mesh=None,
+          stream_rows: Optional[int] = None) -> torch.Tensor:
+    """Inverse DPRT: (N+1, N) projections (or a (B, N+1, N) stack) ->
+    (…, N, N), exact for integers.  Deprecation shim over
+    ``repro_torch.radon.DPRT((N, N), ...).inverse``; projections live in
+    the prime domain (crop an embedded geometry with its operator's
+    ``.inverse``)."""
+    if r.ndim not in (2, 3) or r.shape[-2] != r.shape[-1] + 1:
+        raise ValueError(f"iDPRT input must be (N+1, N) or (B, N+1, N), "
+                         f"got {tuple(r.shape)}")
+    n = r.shape[-1]
+    if not is_prime(n):
+        raise ValueError(f"iDPRT needs prime N, got N={n}")
+    shape = (n, n) if r.ndim == 2 else (r.shape[0], n, n)
+    op = _legacy_operator(shape, r.dtype, method, strip_rows, m_block,
+                          batch_impl, block_rows, block_batch, mesh,
+                          stream_rows=stream_rows)
+    return op.inverse(r)
+
+
+def dprt_batched(f: torch.Tensor, method: Optional[str] = None,
+                 strip_rows: Optional[int] = None,
+                 batch_impl: Optional[str] = None,
+                 m_block: Optional[int] = None,
+                 block_batch: Optional[int] = None,
+                 mesh=None) -> torch.Tensor:
+    """Batched :func:`dprt` over a leading axis (requires (B, H, W))."""
+    if f.ndim != 3:
+        raise ValueError(f"dprt_batched needs (B, H, W), got "
+                         f"{tuple(f.shape)}")
+    return dprt(f, method=method, strip_rows=strip_rows, m_block=m_block,
+                batch_impl=batch_impl, block_batch=block_batch, mesh=mesh)
+
+
+def idprt_batched(r: torch.Tensor, method: Optional[str] = None,
+                  strip_rows: Optional[int] = None,
+                  batch_impl: Optional[str] = None,
+                  m_block: Optional[int] = None,
+                  block_batch: Optional[int] = None,
+                  mesh=None) -> torch.Tensor:
+    """Batched :func:`idprt` over a leading axis (requires (B, N+1, N))."""
+    if r.ndim != 3:
+        raise ValueError(f"idprt_batched needs (B, N+1, N), got "
+                         f"{tuple(r.shape)}")
+    return idprt(r, method=method, strip_rows=strip_rows, m_block=m_block,
+                 batch_impl=batch_impl, block_batch=block_batch, mesh=mesh)
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as :func:`dprt` (see ``repro_torch.core``)."""
+
+    def __call__(self, *args, **kwargs):
+        return dprt(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ takes the kernel's plain version (:func:`.sfdprt.sfdprt_plain`,
 :func:`.pipeline.pipeline_tail_plain`).  :func:`pipeline_tail_cuda` is
 the shard-local tail of the mesh pipeline, K3
 (:func:`repro_torch.core.distributed.projection_pipeline_sharded`).
+
+The reference's names (``dprt_pallas``, ``idprt_pallas``,
+``skew_sum_pallas``, ``skew_sum_pallas_strip``, ``dprt_pallas_strip``,
+``projection_pipeline_pallas``, ``pipeline_tail_pallas``) are thin
+wrappers over the ``*_cuda`` functions with the reference's signatures:
+their ``interpret`` argument, a TPU-only knob, is accepted and changes
+nothing.
 """
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ from .tuning import resolve_blocks, resolve_pipeline_blocks
 
 __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
            "skew_sum_cuda_strip", "dprt_cuda_strip",
-           "projection_pipeline_cuda", "pipeline_tail_cuda"]
+           "projection_pipeline_cuda", "pipeline_tail_cuda",
+           "dprt_pallas", "idprt_pallas", "skew_sum_pallas",
+           "skew_sum_pallas_strip", "dprt_pallas_strip",
+           "projection_pipeline_pallas", "pipeline_tail_pallas"]
 
 
 def _resolve_blocks(n: int, strip_rows: Optional[int],
@@ -243,3 +253,76 @@ def pipeline_tail_cuda(rows, op: str = "conv", operand=None, *,
     if single:
         return z[0], aux[0]
     return z, aux
+
+
+# ---------------------------------------------------------------------------
+# the reference's public names, with its signatures (``interpret`` ignored)
+# ---------------------------------------------------------------------------
+def skew_sum_pallas(g: torch.Tensor, sign: int = 1,
+                    strip_rows: Optional[int] = None,
+                    m_block: Optional[int] = None,
+                    interpret: Optional[bool] = None,
+                    stream_rows: Optional[int] = None) -> torch.Tensor:
+    """:func:`skew_sum_cuda` under the reference's name."""
+    return skew_sum_cuda(g, sign, strip_rows, m_block, stream_rows)
+
+
+def skew_sum_pallas_strip(g: torch.Tensor, sign: int = 1, *,
+                          row_offset: int = 0,
+                          strip_rows: Optional[int] = None,
+                          m_block: Optional[int] = None,
+                          interpret: Optional[bool] = None,
+                          stream_rows: Optional[int] = None) -> torch.Tensor:
+    """:func:`skew_sum_cuda_strip` under the reference's name."""
+    return skew_sum_cuda_strip(g, sign, row_offset=row_offset,
+                               strip_rows=strip_rows, m_block=m_block,
+                               stream_rows=stream_rows)
+
+
+def dprt_pallas_strip(g: torch.Tensor, *, row_offset: int = 0,
+                      strip_rows: Optional[int] = None,
+                      m_block: Optional[int] = None,
+                      interpret: Optional[bool] = None,
+                      stream_rows: Optional[int] = None) -> torch.Tensor:
+    """:func:`dprt_cuda_strip` under the reference's name."""
+    return dprt_cuda_strip(g, row_offset=row_offset, strip_rows=strip_rows,
+                           m_block=m_block, stream_rows=stream_rows)
+
+
+def dprt_pallas(f: torch.Tensor, strip_rows: Optional[int] = None,
+                m_block: Optional[int] = None,
+                interpret: Optional[bool] = None,
+                stream_rows: Optional[int] = None) -> torch.Tensor:
+    """:func:`dprt_cuda` under the reference's name."""
+    return dprt_cuda(f, strip_rows, m_block, stream_rows)
+
+
+def idprt_pallas(r: torch.Tensor, strip_rows: Optional[int] = None,
+                 m_block: Optional[int] = None,
+                 interpret: Optional[bool] = None,
+                 stream_rows: Optional[int] = None) -> torch.Tensor:
+    """:func:`idprt_cuda` under the reference's name."""
+    return idprt_cuda(r, strip_rows, m_block, stream_rows)
+
+
+def projection_pipeline_pallas(f, op: str = "conv", operand=None,
+                               operand_form: Optional[str] = None,
+                               m_block: Optional[int] = None,
+                               group: Optional[int] = None,
+                               lane_batch: Optional[int] = None,
+                               interpret: Optional[bool] = None):
+    """:func:`projection_pipeline_cuda` under the reference's name."""
+    return projection_pipeline_cuda(f, op, operand, operand_form, m_block,
+                                    group, lane_batch)
+
+
+def pipeline_tail_pallas(rows, op: str = "conv", operand=None, *,
+                         row_offset: int = 0, n: Optional[int] = None,
+                         m_block: Optional[int] = None,
+                         group: Optional[int] = None,
+                         lane_batch: Optional[int] = None,
+                         interpret: Optional[bool] = None):
+    """:func:`pipeline_tail_cuda` under the reference's name."""
+    return pipeline_tail_cuda(rows, op, operand, row_offset=row_offset, n=n,
+                              m_block=m_block, group=group,
+                              lane_batch=lane_batch)

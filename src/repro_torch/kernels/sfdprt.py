@@ -37,7 +37,8 @@ from .tuning import SkewTile, skew_holds, skew_tile, stream_dma_holds
 
 __all__ = ["sfdprt", "sfdprt_launch_tile", "sfdprt_plain", "skew_sum_raw",
            "dprt_raw", "idprt_raw", "isfdprt_core", "MODE_LAUNCHES",
-           "reset_launch_counts"]
+           "reset_launch_counts", "skew_sum_pallas_raw", "dprt_pallas_raw",
+           "idprt_pallas_raw", "pipeline_pallas_raw"]
 
 #: kernel launches since the last reset (all modes); MODE_LAUNCHES splits
 #: the same count by mode.  Only :func:`sfdprt` adds to them, once per
@@ -285,3 +286,63 @@ def idprt_raw(r: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
 # The inverse core (iSFDPRT_core) is the skew-sum with circular right
 # shifts, sign -1: the bare, uncorrected Z.
 isfdprt_core = functools.partial(skew_sum_raw, sign=-1)
+
+
+# ---------------------------------------------------------------------------
+# the reference's raw names, with its signatures: ``interpret`` and
+# ``step_impl`` (TPU-only knobs) are accepted and change nothing
+# ---------------------------------------------------------------------------
+def skew_sum_pallas_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
+                        m_block: int = 8, interpret: bool = True,
+                        step_impl: str | None = None, row_offset=None,
+                        stream_rows: int | None = None,
+                        stream_impl: str | None = None) -> torch.Tensor:
+    """:func:`skew_sum_raw` under the reference's name."""
+    return skew_sum_raw(g, sign, strip_rows, m_block, row_offset,
+                        stream_rows, stream_impl)
+
+
+def dprt_pallas_raw(f: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
+                    interpret: bool = True, step_impl: str | None = None,
+                    row_offset=None, stream_rows: int | None = None,
+                    stream_impl: str | None = None) -> torch.Tensor:
+    """:func:`dprt_raw` under the reference's name."""
+    return dprt_raw(f, strip_rows, m_block, row_offset, stream_rows,
+                    stream_impl)
+
+
+def idprt_pallas_raw(r: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
+                     interpret: bool = True, step_impl: str | None = None,
+                     stream_rows: int | None = None,
+                     stream_impl: str | None = None) -> torch.Tensor:
+    """:func:`idprt_raw` under the reference's name."""
+    return idprt_raw(r, strip_rows, m_block, stream_rows, stream_impl)
+
+
+def pipeline_pallas_raw(f: torch.Tensor, operand=None, op: str = "none",
+                        operand_form: str = "proj", source: str = "image",
+                        m_block: int = 32, group: int = 4,
+                        lane_batch: int = 1, defer: bool = False,
+                        interpret: bool = True, step_impl: str | None = None,
+                        row_offset=None, n_rows: int | None = None):
+    """The reference's one-call pipeline under its name, for the two
+    forms the port's kernels run: ``source="image"`` without ``defer``
+    (K2, :func:`.pipeline.pipeline_raw`) and ``source="proj"`` with
+    ``defer`` (K3, :func:`.pipeline.pipeline_tail_raw`).  Returns
+    ``(out, aux)`` at their true (…, N, N) / (…, 2, N) shapes (the
+    reference pads them; its callers slice)."""
+    from .pipeline import pipeline_raw, pipeline_tail_raw  # imports this
+    if source == "image" and not defer:
+        return pipeline_raw(f, operand, op=op, operand_form=operand_form,
+                            m_block=m_block, group=group,
+                            lane_batch=lane_batch)
+    if source == "proj" and defer:
+        if n_rows not in (None, f.shape[-1]):
+            raise ValueError(f"n_rows={n_rows} must be the rows' width "
+                             f"{f.shape[-1]}")
+        return pipeline_tail_raw(f, operand, op=op,
+                                 row_offset=int(row_offset or 0),
+                                 m_block=m_block)
+    raise ValueError(f"the port runs source='image' (K2) or source='proj' "
+                     f"with defer=True (K3), got source={source!r}, "
+                     f"defer={defer}")

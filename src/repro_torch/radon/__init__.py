@@ -12,14 +12,22 @@
     y = conv(img)                                   # exact, one K2 call
     filt = op.inverse @ radon.ProjectionFilter(w) @ op   # fused: one K2 call
 
+    mask = radon.direction_mask(251, [3, 40])       # two directions lost
+    res = radon.solve(op, mask * r.float(), mask=mask)   # masked CG
+    res.image, res.iterations                       # one K2 call per iteration
+
     with radon.config(method="horner"):
         ...                                         # ambient knob defaults
 
 Exports what the port has so far: the DPRT operators, the
 projection-domain fusion surface (``Conv2D``, ``ProjectionFilter``,
-``FusedProjectionPipeline``, ``pipeline_apply``), ambient config
-scopes, build accounting and the plan layer.  The reconstruction
-subsystem and the AOT cache are not ported yet.
+``FusedProjectionPipeline``, ``pipeline_apply``), the reconstruction
+subsystem (``solve``, ``SolveResult``, ``METHODS``, ``MaskedDPRT``,
+``direction_mask``, ``ReconstructionOperator``, ``solve_operator``:
+Sherman-Morrison for unmasked data, CG / LSQR / Landweber otherwise,
+each CG iteration one fused ``mul`` pipeline call), ambient config
+scopes, build accounting and the plan layer.  The AOT cache is not
+ported yet.
 """
 from ..core.plan import (Backend, RadonPlan, available_backends,
                          backend_capabilities, get_backend, get_plan,
@@ -32,16 +40,22 @@ from .ambient import CONFIG_KEYS, config, current_config
 from .autodiff import (RetraceError, reset_trace_counts, retrace_guard,
                        trace_count, trace_counts)
 from .fusion import flip_image, flip_lanes, pipeline_apply
+from .masking import MaskedDPRT, direction_mask
 from .operators import (DPRT, CompositeOperator, Conv2D,
                         FusedProjectionPipeline, ProjectionFilter,
                         RadonOperator, conv2d_from_description,
                         operator_for, projection_filter_from_numpy)
+from .solve import (METHODS, ReconstructionOperator, SolveResult, solve,
+                    solve_operator)
 
 __all__ = [
     "DPRT", "Conv2D", "ProjectionFilter", "FusedProjectionPipeline",
     "RadonOperator", "CompositeOperator", "operator_for",
     "conv2d_from_description", "projection_filter_from_numpy",
     "pipeline_apply", "flip_image", "flip_lanes",
+    # reconstruction subsystem
+    "solve", "SolveResult", "METHODS", "MaskedDPRT", "direction_mask",
+    "ReconstructionOperator", "solve_operator",
     "config", "current_config", "CONFIG_KEYS",
     "retrace_guard", "trace_count", "trace_counts", "reset_trace_counts",
     "RetraceError",

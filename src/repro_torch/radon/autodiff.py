@@ -15,10 +15,13 @@ Retrace accounting
 ------------------
 PyTorch runs eagerly: there is no trace to repeat.  What a serving loop
 must not repeat is *building* -- a plan (cache miss), a CUDA kernel
-library (nvcc) or a plan's differentiable pipeline applier
-(:mod:`repro_torch.radon.fusion`).  They are counted here, as
-``(plan, "plan")``, ``(library, "kernel")`` and
-``(plan, "pipeline:<op>")`` events; :func:`retrace_guard` raises
+library (nvcc), a plan's differentiable pipeline applier
+(:mod:`repro_torch.radon.fusion`) or a solver body
+(:mod:`repro_torch.radon.solve`).  They are counted here, as
+``(plan, "plan")``, ``(library, "kernel")``, ``(plan, "pipeline:<op>")``
+and ``(plan, "solve:<method>")`` events; the appliers live in one
+per-plan store (:func:`plan_applier`) that drops a plan's entries when
+the plan cache evicts it.  :func:`retrace_guard` raises
 :class:`RetraceError` when any one of them happens more than
 ``max_traces`` times inside the scope (``max_traces=0`` asserts a warm
 steady state).
@@ -42,6 +45,7 @@ __all__ = [
     "INVERSE_OF",
     "FUNCTIONS",
     "apply_plan",
+    "plan_applier",
     "trace_count",
     "trace_counts",
     "reset_trace_counts",
@@ -127,11 +131,30 @@ def retrace_guard(max_traces: int = 1):
             _GUARDS.remove(frame)
 
 
-def _drop_plan(plan) -> None:
-    """Plan-cache eviction hook: drop the evicted plan's counters."""
+#: (plan, kind, variant) -> the applier built for it (pipeline
+#: Functions, solver bodies)
+_APPLIERS: dict = {}
+
+
+def plan_applier(plan, kind: str, build, variant=()):
+    """The applier of one (plan, kind, variant), built by ``build()`` and
+    counted as a ``kind`` build of ``plan`` on first use, then reused."""
+    key = (plan, kind, variant)
     with _CACHE_LOCK:
-        for key in [k for k in _TRACE_COUNTS if k[0] == plan]:
-            del _TRACE_COUNTS[key]
+        applier = _APPLIERS.get(key)
+        if applier is None:
+            applier = _APPLIERS[key] = build()
+            _note_trace(plan, kind)
+    return applier
+
+
+def _drop_plan(plan) -> None:
+    """Plan-cache eviction hook: drop the evicted plan's counters and
+    appliers."""
+    with _CACHE_LOCK:
+        for store in (_TRACE_COUNTS, _APPLIERS):
+            for key in [k for k in store if k[0] == plan]:
+                del store[key]
 
 
 add_plan_evict_hook(_drop_plan)

@@ -20,8 +20,8 @@ transpose built from the same registry:
 
 So the backward runs K2 and K1 and needs no kernel of its own.  Each
 (plan, op) gets one :class:`torch.autograd.Function`, created on first
-use and counted as a ``"pipeline:<op>"`` build in
-:mod:`repro_torch.radon.autodiff`'s accounting, so
+use in :mod:`repro_torch.radon.autodiff`'s per-plan store and counted
+as a ``"pipeline:<op>"`` build, so
 :func:`~repro_torch.radon.autodiff.retrace_guard` covers it; the
 appliers drop with plan-cache evictions.  A call that needs no gradient
 runs the plan directly.
@@ -32,8 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..core.plan import add_plan_evict_hook
-from .autodiff import _CACHE_LOCK, _note_trace, apply_plan
+from .autodiff import apply_plan, plan_applier
 
 __all__ = ["pipeline_apply", "pipeline_function", "flip_image", "flip_lanes"]
 
@@ -123,30 +122,11 @@ def _make_function(plan, op: str):
     })
 
 
-#: (plan, op) -> its torch.autograd.Function
-_FUNCTIONS: dict = {}
-
-
 def pipeline_function(plan, op: str):
     """The differentiable fused-pipeline Function of one (plan, op),
     built (and counted as a ``"pipeline:<op>"`` build) on first use."""
-    key = (plan, op)
-    with _CACHE_LOCK:
-        fn = _FUNCTIONS.get(key)
-        if fn is None:
-            fn = _FUNCTIONS[key] = _make_function(plan, op)
-            _note_trace(plan, f"pipeline:{op}")
-    return fn
-
-
-def _drop_plan(plan) -> None:
-    """Plan-cache eviction hook: drop the evicted plan's appliers."""
-    with _CACHE_LOCK:
-        for key in [k for k in _FUNCTIONS if k[0] == plan]:
-            del _FUNCTIONS[key]
-
-
-add_plan_evict_hook(_drop_plan)
+    return plan_applier(plan, f"pipeline:{op}",
+                        lambda: _make_function(plan, op))
 
 
 def pipeline_apply(plan, f: torch.Tensor, op: str = "conv",

@@ -49,7 +49,8 @@ def test_port_has_the_slice_modules():
                 "kernels/stream.py",
                 "kernels/tuning.py", "kernels/ref.py", "kernels/_build.py",
                 "radon/operators.py", "radon/autodiff.py", "radon/fusion.py",
-                "radon/ambient.py", "launch/serve.py",
+                "radon/ambient.py", "radon/masking.py", "radon/solve.py",
+                "launch/serve.py",
                 "core/distributed.py", "launch/mesh.py",
                 "launch/service.py", "data/synthetic.py",
                 "configs/radon_251.py"):
