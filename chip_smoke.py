@@ -6,9 +6,10 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-five main paths -- four of the ``radon_251`` configuration (256 phantom
-images of 251 x 251, int32) and the giant-N path -- each with the launch
-counts set to 0 just before it and read just after:
+six main paths -- five of the ``radon_251`` configuration (256 phantom
+images of 251 x 251, int32; the serving tier at N = 251) and the
+giant-N path -- each with the launch counts set to 0 just before it and
+read just after:
 
 1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
    and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
@@ -38,7 +39,22 @@ counts set to 0 just before it and read just after:
    bench's N = 13 ``lstsq`` gate, fixed-count runs of preconditioned CG,
    LSQR and Landweber (their launches per iteration), a float32
    gradient's adjoint identity and per-image 3-D masks; timed per CG
-   iteration beside the K2 ``mul`` kernel.
+   iteration beside the K2 ``mul`` kernel;
+6. the serving tier (``repro_torch.launch.service.DPRTService`` at N =
+   251, int32, max_batch 8: warm sizes 1, 2, 4, 8) on each datapath --
+   forward, inverse, roundtrip, conv (3 x 3 ones), masked CG solve (4
+   directions lost): 64 requests sequentially and coalesced, equal to
+   each other and to the kernels' plain versions (``sfdprt_plain``,
+   ``pipeline_plain``; solve: the ``gather`` backend), with zero builds
+   after warmup, no fallback, one K1 per transform and one K2 per conv
+   batch per executed batch and one K2 ``mul`` per CG iteration;
+   images/s and p50/p99 of both; the persistent executable cache in
+   three processes over one aot_dir (cold with nvcc; restored with an
+   empty build directory and nvcc that raises; after
+   ``faults.corrupt_blobs``); the router under seeded chaos with a
+   manifest of N in (13, 31, 251); and a pool of two worker processes on
+   the card, one SIGKILLed mid-traffic, every request answered once and
+   exactly.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
@@ -50,7 +66,8 @@ block, K2 by m_block and K3 by directions per block (ms against blocks
 per image), the streamed kernel by directions per block; and profiles
 one ``Conv2D`` call of the pipeline path and one of the mesh path.
 
-Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
+Output: progress lines, a ``{"serving": {...}}`` JSON line of the
+serving phase's numbers, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line; so does a machine without a CUDA card, or a directory that
@@ -2585,6 +2602,512 @@ def solve_timing_phase(solve_info: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the serving tier: DPRTService, the persistent executable cache, the
+# router and the supervised pool
+# ---------------------------------------------------------------------------
+SERVE_DEVICE = "cuda"
+SERVE_N = 251
+SERVE_MAX_BATCH = 8
+SERVE_REQUESTS = 64
+SERVE_WAIT_US = 2000.0
+#: passes of the coalesced traffic; throughput is the best pass
+SERVE_REPEATS = 3
+SERVE_DATAPATHS = ("forward", "inverse", "roundtrip", "conv", "solve")
+#: the restart check's services: conv launches K1 (the kernel's
+#: projections, once per executable) and K2, roundtrip K1 both ways, so
+#: the blobs must carry both libraries
+RESTART_DATAPATHS = ("conv", "roundtrip")
+#: router chaos: the manifest, the seed and the one route faults target
+CHAOS_NS = (13, 31, 251)
+CHAOS_SEED = 7
+CHAOS_ROUTE = "31x31/int32/forward"
+POOL_WORKERS = 2
+#: seconds a pool or restart child may take, end to end
+SERVE_CHILD_TIMEOUT = 300
+
+
+def serve_problem(n: int, dev):
+    """The serving phase's requests and their plain answers on ``dev``:
+    SERVE_REQUESTS phantoms, their projections (the inverse requests),
+    the mask of SOLVE_DROP lost directions and the masked sinograms (the
+    solve requests).  The expected answers are the kernels' plain
+    versions -- ``sfdprt_plain`` forward and inverse, ``pipeline_plain``
+    conv -- each checked equal to the plain ``gather`` backend, and the
+    ``gather`` backend's masked CG solve."""
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.data.synthetic import radon_images
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+
+    imgs_np = radon_images(n, SERVE_REQUESTS, kind="phantom")
+    imgs = torch.from_numpy(imgs_np).to(dev)
+    shape = (SERVE_REQUESTS, n, n)
+    plain = radon.DPRT(shape, torch.int32, method="gather")
+    proj = S.sfdprt_plain(imgs, sign=1, mode="forward")
+    corr = (proj[:, n] - proj[:, 0].sum(-1, keepdim=True)).contiguous()
+    back = S.sfdprt_plain(proj[:, :n].contiguous(), sign=-1, mode="inverse",
+                          corr=corr)
+    kernel = torch.ones((3, 3), dtype=torch.int32)
+    kimg = torch.zeros((1, n, n), dtype=torch.int32, device=dev)
+    kimg[0, :3, :3] = 1
+    conv = P.pipeline_plain(imgs, kimg, op="conv", operand_form="image")[0]
+    for name, got, want in (
+            ("forward", proj, plain(imgs)),
+            ("inverse", back, plain.inverse(proj)),
+            ("conv", conv, radon.Conv2D(shape, kernel, torch.int32,
+                                        method="gather")(imgs))):
+        if not torch.equal(got, want):
+            fail(f"serving reference: the plain {name} version differs "
+                 f"from the gather backend")
+    if not torch.equal(back, imgs):
+        fail("serving reference: the plain inverse is not exact")
+    missing = np.random.default_rng(0).choice(n + 1, SOLVE_DROP,
+                                              replace=False)
+    mask = radon.direction_mask(n, missing, device=dev)
+    m = radon.MaskedDPRT(plain, mask=mask)
+    bm = m(imgs)
+    sol = radon.solve(m, bm, "cg", tol=SOLVE_TOL,
+                      maxiter=SOLVE_MAXITER).image
+    host = lambda t: list(t.cpu().numpy())      # noqa: E731
+    return {
+        "n": n, "kernel": kernel, "mask": mask,
+        "missing": sorted(int(v) for v in missing),
+        "requests": {"forward": list(imgs_np), "inverse": host(proj),
+                     "roundtrip": list(imgs_np), "conv": list(imgs_np),
+                     "solve": host(bm)},
+        "plain": {"forward": host(proj), "inverse": host(back),
+                  "roundtrip": list(imgs_np), "conv": host(conv),
+                  "solve": host(sol)},
+    }
+
+
+def serve_service(datapath: str, prob: dict, dev, aot_dir=None):
+    """One ``DPRTService`` of the serving phase (N from ``prob``, int32,
+    max_batch 8: warm sizes 1, 2, 4, 8)."""
+    import torch
+    from repro_torch.launch.service import DPRTService
+    kw = {}
+    if datapath == "conv":
+        kw["conv_kernel"] = prob["kernel"]
+    if datapath == "solve":
+        kw.update(solve_mask=prob["mask"], solver="cg", solve_tol=SOLVE_TOL,
+                  solve_maxiter=SOLVE_MAXITER)
+    return DPRTService((prob["n"], prob["n"]), torch.int32,
+                       max_batch=SERVE_MAX_BATCH, max_wait_us=SERVE_WAIT_US,
+                       datapath=datapath, aot_dir=aot_dir, device=dev, **kw)
+
+
+def check_responses(label: str, datapath: str, got, want) -> float:
+    """Integer datapaths bit for bit; ``solve`` within SOLVE_IMAGE_REL of
+    the expected image's peak.  Returns the worst error."""
+    import numpy as np
+    import torch
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} responses for {len(want)} requests")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape:
+            fail(f"{label}: response {i} has shape {g.shape}, want "
+                 f"{w.shape}")
+        if datapath == "solve":
+            worst = max(worst, check_solve_image(
+                f"{label} response {i}", torch.from_numpy(g),
+                torch.from_numpy(w)))
+        elif not np.array_equal(g, w):
+            fail(f"{label}: response {i} differs (max |err| "
+                 f"{np.abs(g.astype(np.int64) - w).max()})")
+    return worst
+
+
+def serve_expected_launches(datapath: str, batches: int, iters: int) -> dict:
+    """The launches ``batches`` executions of one datapath make: one K1 per
+    transform, one K2 per conv batch (and no K1 forward: the kernel's
+    projections were made at warmup), one K1 inverse per solve batch
+    (A^T of the right-hand side) and one K2 ``mul`` per CG iteration."""
+    k1 = {"core": 0, "forward": 0, "inverse": 0}
+    k2 = {"none": 0, "mul": 0, "conv": 0}
+    if datapath in ("forward", "roundtrip"):
+        k1["forward"] = batches
+    if datapath in ("inverse", "roundtrip", "solve"):
+        k1["inverse"] = batches
+    if datapath == "conv":
+        k2["conv"] = batches
+    if datapath == "solve":
+        k2["mul"] = iters
+    return {"k1": k1, "k2": k2}
+
+
+def serving_phase() -> dict:
+    """``selfcheck`` on the card, then each datapath of ``DPRTService`` at
+    N = 251 on the card: 64 requests sequentially (one batch-1
+    executable each) and coalesced
+    (padded to warm sizes), each run counted with zero builds allowed;
+    the responses equal each other and the kernels' plain versions, the
+    launches are one K1 per transform per batch, one K2 per conv batch
+    and one K2 ``mul`` per CG iteration, and no fallback ran.  Returns
+    the measured rates and latencies by datapath."""
+    import torch
+    from repro_torch.launch.service import latency_summary
+
+    from repro_torch.radon import healthz, selfcheck
+
+    dev = torch.device(SERVE_DEVICE)
+    if selfcheck.run(dev) != 0:
+        fail("python -m repro_torch.radon.selfcheck failed on the card")
+    log("selfcheck passed on the card; " + healthz.report(dev).splitlines()[0])
+    prob = serve_problem(SERVE_N, dev)
+    out = {"missing": prob["missing"]}
+    for dp in SERVE_DATAPATHS:
+        reqs = prob["requests"][dp]
+        svc = serve_service(dp, prob, dev)
+        t0 = time.perf_counter()
+        winfo = svc.warmup()
+        warm_s = time.perf_counter() - t0
+        (ref, seq_lat), seq = counted(lambda: svc.run_sequential(reqs))
+        want = serve_expected_launches(dp, len(reqs), seq["iters"]["cg"])
+        if {k: seq[k] for k in want} != want or any(seq["k3"].values()):
+            fail(f"serve {dp} sequential: launches {seq}, expected {want}")
+        svc.reset_metrics()
+        got, co = counted(lambda: svc.run_requests(reqs,
+                                                   repeats=SERVE_REPEATS))
+        s = svc.stats()
+        want = serve_expected_launches(dp, s["batches"], co["iters"]["cg"])
+        if {k: co[k] for k in want} != want or any(co["k3"].values()):
+            fail(f"serve {dp} coalesced: launches {co}, expected {want}")
+        if s["requests"] != SERVE_REPEATS * len(reqs) or s["failures"]:
+            fail(f"serve {dp}: {s['requests']} requests served, "
+                 f"{s['failures']} failed")
+        if s["fallback_uses"] != 0:
+            fail(f"serve {dp}: fallback ran {s['fallback_uses']} times "
+                 f"with no fault injected")
+        if svc.steady_state_retraces() != 0:
+            fail(f"serve {dp}: {svc.steady_state_retraces()} builds after "
+                 f"warmup")
+        if not svc.healthy():
+            fail(f"serve {dp}: healthz verdict FAIL\n{svc.healthz()}")
+        err = check_responses(f"serve {dp} coalesced vs sequential", dp,
+                              got, ref)
+        err = max(err, check_responses(f"serve {dp} vs plain", dp, got,
+                                       prob["plain"][dp]))
+        seq_rate = len(reqs) / sum(seq_lat)
+        co_rate = len(reqs) / min(svc.last_pass_walls)
+        seq_sum = latency_summary(seq_lat)
+        lat = s["latency"]
+        out[dp] = {"warmup_s": warm_s,
+                   "executables": winfo["executables"],
+                   "seq_imgs_per_s": seq_rate,
+                   "seq_p50_ms": seq_sum["p50_ms"],
+                   "seq_p99_ms": seq_sum["p99_ms"],
+                   "imgs_per_s": co_rate, "p50_ms": lat["p50_ms"],
+                   "p99_ms": lat["p99_ms"], "batches": s["batches"],
+                   "batch_size_counts": s["batch_size_counts"],
+                   "cg_iterations": co["iters"]["cg"], "max_err": err}
+        log(f"serve {dp}: N={SERVE_N} {len(reqs)} requests, warm sizes "
+            f"{svc.sizes}; sequential {seq_rate:.1f} img/s p50 "
+            f"{seq_sum['p50_ms']:.3f} p99 {seq_sum['p99_ms']:.3f} ms; "
+            f"coalesced {co_rate:.1f} img/s p50 {lat['p50_ms']:.3f} p99 "
+            f"{lat['p99_ms']:.3f} ms (best of {SERVE_REPEATS}; "
+            f"{s['batches']} batches {s['batch_size_counts']}); launches "
+            f"k1 {co['k1']} k2 {co['k2']} cg iterations "
+            f"{co['iters']['cg']}; exact vs sequential and plain"
+            + (f" (solve max |err|/peak {err:.3g})" if dp == "solve"
+               else "") + "; 0 builds, 0 fallbacks")
+    return out
+
+
+def restart_child(stage: str, aot_dir: str) -> int:
+    """One process of the warm-restart check (``chip_smoke.py
+    --serve-restart-child STAGE DIR``): A cold (an empty build directory:
+    nvcc builds the libraries), B with an empty build directory and nvcc
+    replaced by a function that raises, C after
+    ``faults.corrupt_blobs(DIR, seed=0)``.  Builds the RESTART_DATAPATHS
+    services over ``DIR``, warms them, serves SERVE_MAX_BATCH requests of
+    each against the plain backend and prints one JSON line."""
+    import tempfile
+    import torch
+    from repro_torch import radon
+    from repro_torch.kernels import _build
+    from repro_torch.launch import faults
+
+    if stage in ("A", "B"):        # no library built yet: a true cold
+        _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="restart_build_"))
+    if stage == "B":
+        def no_nvcc():
+            raise RuntimeError("nvcc must not run in a restart from blobs")
+        _build._nvcc = no_nvcc
+    if stage == "C":
+        faults.corrupt_blobs(aot_dir, seed=0)
+    dev = torch.device(SERVE_DEVICE)
+    n = SERVE_N
+    shape = (SERVE_MAX_BATCH, n, n)
+    from repro_torch.data.synthetic import radon_images
+    imgs_np = radon_images(n, SERVE_MAX_BATCH, seed=5, kind="phantom")
+    imgs = torch.from_numpy(imgs_np).to(dev)
+    kernel = torch.ones((3, 3), dtype=torch.int32)
+    plain = {"conv": radon.Conv2D(shape, kernel, torch.int32,
+                                  method="gather")(imgs).cpu().numpy(),
+             "roundtrip": imgs_np}
+    prob = {"n": n, "kernel": kernel}
+    builds = radon.trace_count(kind="kernel")
+    stats, warm_s = {}, 0.0
+    for dp in RESTART_DATAPATHS:
+        svc = serve_service(dp, prob, dev, aot_dir=aot_dir)
+        t0 = time.perf_counter()
+        info = svc.warmup()
+        warm_s += time.perf_counter() - t0
+        for k, v in info["persistent"].items():
+            if k != "directory":
+                stats[k] = stats.get(k, 0) + v
+        stats["executables"] = stats.get("executables", 0) \
+            + info["executables"]
+        got = svc.run_requests(list(imgs_np))
+        check_responses(f"restart {stage} {dp}", dp, got, list(plain[dp]))
+    print(json.dumps({"stage": stage, "warmup_s": warm_s,
+                      "nvcc_builds": radon.trace_count(kind="kernel")
+                      - builds,
+                      "build_dir": str(_build.BUILD_DIR), **stats}),
+          flush=True)
+    return 0
+
+
+def run_child(args: list) -> dict:
+    """Run ``chip_smoke.py`` with ``args`` in a fresh process; its last
+    stdout line is a JSON object."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           *args], capture_output=True, text=True,
+                          timeout=SERVE_CHILD_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"child {args} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def warm_restart_phase() -> dict:
+    """Three processes over one aot_dir: A cold (every executable a
+    miss, its libraries built by nvcc), B restored with no build directory and no nvcc (every one a
+    hit, 0 nvcc builds, exact responses: the blobs carry the kernels),
+    C after corrupt_blobs(seed=0) (every blob an error and a degraded
+    compile, no crash, exact responses)."""
+    import shutil
+    import tempfile
+    aot_dir = tempfile.mkdtemp(prefix="serve_aot_")
+    try:
+        a = run_child(["--serve-restart-child", "A", aot_dir])
+        e = a["executables"]
+        if (a["misses"], a["hits"], a["errors"]) != (e, 0, 0):
+            fail(f"restart A (cold): {a}, expected misses == {e}, hits 0")
+        b = run_child(["--serve-restart-child", "B", aot_dir])
+        if (b["hits"], b["misses"], b["errors"], b["nvcc_builds"]) \
+                != (e, 0, 0, 0):
+            fail(f"restart B (from blobs, no nvcc): {b}, expected hits == "
+                 f"{e}, 0 misses, 0 nvcc builds")
+        c = run_child(["--serve-restart-child", "C", aot_dir])
+        if (c["errors"], c["degraded_compiles"], c["hits"]) != (e, e, 0):
+            fail(f"restart C (corrupt blobs): {c}, expected errors == "
+                 f"degraded_compiles == {e}")
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    log(f"warm restart over one aot_dir, {e} executables "
+        f"({'+'.join(RESTART_DATAPATHS)}, N={SERVE_N}): A cold misses "
+        f"{a['misses']}, {a['nvcc_builds']} nvcc builds, warmup "
+        f"{a['warmup_s']:.3f} s; B restored hits "
+        f"{b['hits']} with an empty build dir and no nvcc, warmup "
+        f"{b['warmup_s']:.3f} s; C corrupt blobs: errors {c['errors']}, "
+        f"degraded compiles {c['degraded_compiles']}, warmup "
+        f"{c['warmup_s']:.3f} s; responses exact in all three")
+    return {"executables": e, "cold_nvcc_builds": a["nvcc_builds"],
+            "cold_warmup_s": a["warmup_s"],
+            "restored_warmup_s": b["warmup_s"],
+            "corrupt_warmup_s": c["warmup_s"]}
+
+
+def router_chaos_phase() -> dict:
+    """The router on the card with a manifest of N in CHAOS_NS over an
+    aot_dir whose blobs were corrupted: a seeded burst with deadlines,
+    priorities and a flood under seeded errors and delays aimed at
+    CHAOS_ROUTE, then one request of that route whose dispatch and retry
+    both fail, so it degrades to the fallback.  Every response is exact
+    against the plain backend or a typed error, no future is dropped,
+    and fallbacks ran on the faulted route only."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.launch import faults
+    from repro_torch.launch.errors import ServiceError
+    from repro_torch.launch.router import ServiceRouter
+
+    dev = torch.device(SERVE_DEVICE)
+    manifest = [{"n": n} for n in CHAOS_NS]
+    aot_dir = tempfile.mkdtemp(prefix="chaos_aot_")
+    try:
+        seeder = ServiceRouter(max_batch=SERVE_MAX_BATCH, aot_dir=aot_dir,
+                               device=dev)
+        seeder.prefill(manifest)
+        radon.aot_cache_clear()
+        corrupted = faults.corrupt_blobs(aot_dir, seed=CHAOS_SEED)
+        rng = np.random.default_rng(CHAOS_SEED)
+        traffic, want = [], []
+        for i in range(48):
+            n = CHAOS_NS[i % len(CHAOS_NS)]
+            img = rng.integers(0, 256, (n, n)).astype(np.int32)
+            kw = {}
+            if i % 11 == 3:
+                kw["deadline_s"] = 1e-6      # unmeetable: typed rejection
+            if i % 5 == 0:
+                kw["priority"] = 1
+            traffic.append(({"n": n}, img, kw))
+        for _ in range(48):                  # a flood of one route
+            traffic.append(({"n": CHAOS_NS[0]},
+                            np.zeros((CHAOS_NS[0],) * 2, np.int32), {}))
+        for spec, img, _kw in traffic:
+            n = spec["n"]
+            op = radon.DPRT((1, n, n), torch.int32, method="gather")
+            want.append(op(torch.from_numpy(img[None]).to(dev))[0].cpu()
+                        .numpy())
+        router = ServiceRouter(max_batch=SERVE_MAX_BATCH, max_wait_us=500.0,
+                               queue_cap=16, max_retries=1,
+                               retry_backoff_s=1e-3, aot_dir=aot_dir,
+                               device=dev)
+        router.prefill(manifest)
+        with faults.FaultInjector(seed=CHAOS_SEED, sites=("dispatch",),
+                                  match=CHAOS_ROUTE, error_count=1,
+                                  error_rate=0.2, delay_s=0.002,
+                                  delay_rate=0.3) as inj:
+            outs = router.run_requests(traffic)
+        # the degrade path, forced: every dispatch attempt of one request
+        # of CHAOS_ROUTE fails, so the retries run out
+        n = int(CHAOS_ROUTE.split("x")[0])
+        img = rng.integers(0, 256, (n, n)).astype(np.int32)
+        op = radon.DPRT((1, n, n), torch.int32, method="gather")
+        traffic.append(({"n": n}, img, {}))
+        want.append(op(torch.from_numpy(img[None]).to(dev))[0].cpu().numpy())
+        with faults.FaultInjector(seed=CHAOS_SEED + 1, sites=("dispatch",),
+                                  match=CHAOS_ROUTE,
+                                  error_count=router.max_retries + 1):
+            outs += router.run_requests([({"n": n}, img)])
+        exact = typed = 0
+        for (spec, _img, kw), out, w in zip(traffic, outs, want):
+            if isinstance(out, ServiceError):
+                typed += 1
+            elif isinstance(out, BaseException):
+                fail(f"router chaos: untyped failure {out!r}")
+            elif not np.array_equal(np.asarray(out), w):
+                fail(f"router chaos: a response for N={spec['n']} is wrong")
+            else:
+                exact += 1
+        s = router.stats()
+        fallback = {label: route.service.stats()["fallback_uses"]
+                    for label, route in
+                    ((r.label, r) for r in router._routes.values())}
+        if s["pending"] or s["failed"]:
+            fail(f"router chaos: pending {s['pending']} failed "
+                 f"{s['failed']}")
+        accounted = (s["delivered"] + s["failed"] + s["pending"]
+                     + router.rejected_deadline + router.rejected_shutdown)
+        if s["admitted"] != accounted:
+            fail(f"router chaos: admitted {s['admitted']} != accounted "
+                 f"{accounted}")
+        if fallback.get(CHAOS_ROUTE, 0) < 1 or any(
+                v for k, v in fallback.items() if k != CHAOS_ROUTE):
+            fail(f"router chaos: fallback uses {fallback}, expected > 0 on "
+                 f"{CHAOS_ROUTE} only")
+        if router.degraded_compiles() < 1 or typed < 1:
+            fail(f"router chaos: degraded compiles "
+                 f"{router.degraded_compiles()}, typed {typed}")
+        if router.verdict() != "WARN":
+            fail(f"router chaos: verdict {router.verdict()}")
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    log(f"router chaos: N in {CHAOS_NS}, seed {CHAOS_SEED}, {corrupted} "
+        f"blobs corrupted ({router.degraded_compiles()} degraded compiles); "
+        f"{len(traffic)} requests: {exact} exact, {typed} typed; injected "
+        f"{inj.stats()['injected_errors']} errors, "
+        f"{inj.stats()['injected_delays']} delays on {CHAOS_ROUTE}; "
+        f"fallback uses {fallback}; verdict WARN")
+    return {"exact": exact, "typed": typed, "fallback_uses": fallback}
+
+
+def pool_phase() -> dict:
+    """POOL_WORKERS worker processes on the one card over a shared cold
+    aot_dir, one SIGKILLed mid-traffic: every request answered once and
+    exactly (the killed worker's in-flight ones replayed on its peer),
+    the workers' persistent misses summing to the executables."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import radon
+    from repro_torch.checkpoint.store import list_blobs
+    from repro_torch.launch.supervisor import WorkerPool
+
+    dev = torch.device(SERVE_DEVICE)
+    n = SERVE_N
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 256, (n, n)).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+    op = radon.DPRT((SERVE_REQUESTS, n, n), torch.int32, method="gather")
+    want = op(torch.from_numpy(np.stack(imgs)).to(dev)).cpu().numpy()
+    aot_dir = tempfile.mkdtemp(prefix="pool_aot_")
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    pool = WorkerPool(POOL_WORKERS, aot_dir=aot_dir, manifest=[{"n": n}],
+                      max_batch=SERVE_MAX_BATCH, pending_cap=256,
+                      probe_interval_s=2.0, restart_backoff_s=0.25,
+                      env=env, device=str(dev), drain_timeout_s=60.0)
+    try:
+        with pool:
+            t0 = time.perf_counter()
+            if not pool.wait_ready(float(SERVE_CHILD_TIMEOUT)):
+                fail("pool workers never became ready")
+            boot_s = time.perf_counter() - t0
+            cold = pool.healthz(probe=True, probe_timeout_s=30.0)
+            misses = sum((w["persistent"] or {}).get("misses", 0)
+                         for w in cold["workers"])
+            blobs = len(list_blobs(aot_dir))
+            t1 = time.perf_counter()
+            futs = [pool.submit({"n": n}, im) for im in imgs]
+            # worker 0 holds half the traffic in flight: kill it now
+            lost = len(pool._workers[0].inflight)
+            if not lost or not pool.kill_worker(0):
+                fail("pool: worker 0 was not live with requests in flight")
+            outs = [f.result(timeout=SERVE_CHILD_TIMEOUT) for f in futs]
+            wall = time.perf_counter() - t1
+            deadline = time.monotonic() + SERVE_CHILD_TIMEOUT
+            while pool.workers_lost < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            for i, o in enumerate(outs):
+                if not np.array_equal(np.asarray(o), want[i]):
+                    fail(f"pool: response {i} is wrong")
+            journal = pool.journal.stats()
+            report = pool.healthz()
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    if misses != blobs:
+        fail(f"pool: the workers' persistent misses sum to {misses}, "
+             f"{blobs} executables on disk")
+    if pool.delivered != SERVE_REQUESTS or journal["deliver"] \
+            != SERVE_REQUESTS or pool.failed or not pool.identity_ok():
+        fail(f"pool: delivered {pool.delivered}, journal {journal}, "
+             f"failed {pool.failed}, identity {pool.identity_ok()}")
+    if pool.workers_lost < 1:
+        fail("pool: the SIGKILL did not register as a worker loss")
+    log(f"pool: {POOL_WORKERS} workers on the card, N={n}, cold boot "
+        f"{boot_s:.1f} s, persistent misses {misses} == {blobs} "
+        f"executables; {SERVE_REQUESTS} requests in {wall:.2f} s with "
+        f"worker 0 SIGKILLed holding {lost} in flight: all answered once "
+        f"and exactly ({pool.replays} replayed, verdict "
+        f"{report['verdict']})")
+    return {"boot_s": boot_s, "misses": misses, "replays": pool.replays,
+            "req_per_s": SERVE_REQUESTS / wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -2595,6 +3118,8 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no port sources under {SRC}: run from a checkout")
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--serve-restart-child"]:
+        return restart_child(sys.argv[2], sys.argv[3])
     from repro_torch.launch.mesh import close_world
     card = nvidia_smi_line()
     log(f"card: {card}")
@@ -2612,6 +3137,8 @@ def main() -> int:
     mesh_launches = mesh_main_path_phase()
     four_shards_phase()
     solve_info = solve_main_path_phase()
+    serving = {"service": serving_phase(), "restart": warm_restart_phase(),
+               "router_chaos": router_chaos_phase(), "pool": pool_phase()}
     kernels = timing_phase(launches, worst,
                            pipe_launches["k1"]["forward"])
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
@@ -2622,6 +3149,7 @@ def main() -> int:
     pipeline_profile_phase(mesh=True)
     close_world()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

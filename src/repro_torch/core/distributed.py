@@ -63,6 +63,7 @@ __all__ = [
     "dprt_sharded_pallas",
     "idprt_sharded_pallas",
     "projection_pipeline_sharded",
+    "batch_partition_spec",
     "BATCH_AXES",
     "REDUCES",
 ]
@@ -93,6 +94,17 @@ def _batch_axes(mesh, row_axis: Optional[str]) -> tuple:
     """Data axes a batched stack shards over (never the row axis)."""
     names = _dim_names(mesh)
     return tuple(a for a in BATCH_AXES if a in names and a != row_axis)
+
+
+def batch_partition_spec(mesh) -> tuple:
+    """The mesh-natural placements of a (B, rows, N) stack, one per mesh
+    dim: the batch sharded over the mesh's data axes (``Shard(0)``),
+    replicated over the row axis -- the port of the reference's
+    ``PartitionSpec(data_axes, None, None)``, and what
+    :attr:`repro_torch.radon.RadonOperator.input_sharding` gives."""
+    baxes = _batch_axes(mesh, _row_axis(mesh))
+    return tuple(Shard(0) if a in baxes else Replicate()
+                 for a in _dim_names(mesh))
 
 
 def _chunk(size: int, parts: int, index: int) -> tuple:

@@ -105,9 +105,15 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 def as_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype or a name such as ``"int32"``."""
+    """A torch dtype from a torch dtype, a name such as ``"int32"`` or a
+    numpy dtype (the serving tier's requests are numpy arrays)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if not isinstance(dtype, str):
+        try:
+            dtype = np.dtype(dtype).name
+        except TypeError:
+            pass
     out = getattr(torch, str(dtype), None)
     if not isinstance(out, torch.dtype):
         raise TypeError(f"not a torch dtype: {dtype!r}")

@@ -12,9 +12,17 @@ Several libraries build in parallel: one ``nvcc`` per library, all
 started together.  The toolkit is found the way PyTorch finds it
 (``torch.utils.cpp_extension.CUDA_HOME``); nothing else outside the
 repository is used.
+
+The serving tier's persistent executable cache ships these libraries:
+:func:`recording` collects, per thread, the libraries (and tiles) that
+the kernel wrappers launch (:func:`note_launch`), and :func:`install`
+puts a library's bytes at its hashed path by atomic rename, so a
+restarted process loads it with no nvcc run.  :data:`COUNT_LOCK` guards
+the wrappers' launch counters, which serving threads update together.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +33,8 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 __all__ = ["LIBRARIES", "NVCC_FLAGS", "BUILD_DIR", "build", "load",
-           "build_log", "add_build_hook"]
+           "build_log", "add_build_hook", "library_path", "sources_hash",
+           "install", "recording", "note_launch", "COUNT_LOCK"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,6 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _BUILD_HOOKS: list = []
+#: guards the kernel wrappers' launch counters (serving threads launch
+#: concurrently)
+COUNT_LOCK = threading.Lock()
+_TLS = threading.local()
 
 
 def add_build_hook(fn: Callable[[str], None]) -> None:
@@ -58,6 +71,67 @@ def _lib_path(name: str) -> Path:
         h.update(header.name.encode())
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where library ``name`` of the current sources lives (its file name
+    carries the hash of the sources, headers and flags)."""
+    return _lib_path(name)
+
+
+def sources_hash() -> str:
+    """One hash of the flags and every file under ``csrc/``: an edit to
+    any kernel source changes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def install(name: str, data: bytes) -> Path:
+    """Put ``data``, a build of library ``name``, at its hashed path under
+    :data:`BUILD_DIR` by atomic rename (a library already there is kept),
+    so :func:`load` finds it and runs no nvcc.  The caller has verified
+    the bytes."""
+    path = _lib_path(name)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}."
+                         f"{threading.get_ident()}.tmp")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect what the kernel wrappers launch on this thread inside the
+    scope: ``{"libraries": set of names, "tiles": [(name, tile), ...]}``
+    (each distinct tile once, in launch order)."""
+    rec = {"libraries": set(), "tiles": []}
+    stack = _TLS.__dict__.setdefault("stack", [])
+    stack.append(rec)
+    try:
+        yield rec
+    finally:
+        stack.remove(rec)
+
+
+def note_launch(name: str, tile=None) -> None:
+    """A wrapper's record of one launch of library ``name``'s kernel with
+    ``tile``, for the thread's open :func:`recording` scopes."""
+    for rec in getattr(_TLS, "stack", ()):
+        rec["libraries"].add(name)
+        if tile is not None:
+            entry = (name, tuple(int(v) for v in tile))
+            if entry not in rec["tiles"]:
+                rec["tiles"].append(entry)
 
 
 def _nvcc() -> str:

@@ -195,7 +195,9 @@ def pipeline_launch_tile(f: torch.Tensor, operand: Optional[torch.Tensor],
             f"pipeline kernel launch failed (op={op}, {operand_form}, "
             f"B={b}, N={n}, {tile}): "
             f"{lib.pipeline_error_string(err).decode()}")
-    OP_LAUNCHES[op] += 1
+    with _build.COUNT_LOCK:
+        OP_LAUNCHES[op] += 1
+    _build.note_launch("pipeline", tile)
     return out, aux
 
 
@@ -326,7 +328,9 @@ def pipeline_tail_launch_tile(rows: torch.Tensor,
             f"pipeline tail kernel launch failed (op={op}, B={b}, rows={k}, "
             f"N={n}, row_offset={row_offset}, {tile}): "
             f"{lib.pipeline_error_string(err).decode()}")
-    TAIL_OP_LAUNCHES[op] += 1
+    with _build.COUNT_LOCK:
+        TAIL_OP_LAUNCHES[op] += 1
+    _build.note_launch("pipeline", tile)
     return z, aux
 
 

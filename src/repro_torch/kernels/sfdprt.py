@@ -154,8 +154,10 @@ def sfdprt_launch_tile(g: torch.Tensor, tile: SkewTile, *, sign: int,
         raise RuntimeError(
             f"sfdprt kernel launch failed ({mode}, B={b}, rows={rows}, "
             f"N={n}, {tile}): {lib.sfdprt_error_string(err).decode()}")
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+        MODE_LAUNCHES[mode] += 1
+    _build.note_launch("sfdprt", tile)
     return out
 
 

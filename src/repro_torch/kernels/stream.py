@@ -191,8 +191,10 @@ def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
             f"streamed kernel launch failed ({impl}, {mode}, B={b}, "
             f"rows={rows}, N={n}, {tile}): "
             f"{lib.stream_error_string(err).decode()}")
-    LAUNCHES += 1
-    IMPL_MODE_LAUNCHES[(impl, mode)] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+        IMPL_MODE_LAUNCHES[(impl, mode)] += 1
+    _build.note_launch("stream", tile)
     return out
 
 

@@ -28,6 +28,10 @@ item, the directions per block and its warps, the stage height and ring
 depth, and for K2 and K3 the layout of their shared memory.
 ``strip_rows`` caps K1's stage height and ``m_block`` caps the
 directions per block of all three.
+
+The serving tier's warm batch sizes (:data:`SERVE_WARM_BATCHES`,
+:func:`warm_batch_sizes`, :func:`router_warm_sizes`,
+:func:`nearest_warm_batch`) are the reference's rules, copied.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ __all__ = ["PALLAS_TUNE", "pallas_block_spec", "resolve_blocks",
            "PIPE_WARPS", "PIPE_ITEMS", "SkewTile", "skew_cols", "conv_run",
            "skew_row_bytes", "skew_holds", "skew_geometry", "skew_tile",
            "PipelineTile", "pipeline_geometry", "pipeline_tile",
-           "tail_tile"]
+           "tail_tile", "SERVE_WARM_BATCHES", "warm_batch_sizes",
+           "ROUTER_TRIM_N", "router_warm_sizes", "nearest_warm_batch"]
 
 # N values already warned about (once per process per N).
 _FALLBACK_WARNED: set = set()
@@ -649,3 +654,52 @@ def resolve_pipeline_blocks(n: int, itemsize: int = 4,
     if mb < 1 or k < 1:
         raise ValueError(f"m_block/group must be >= 1, got {mb}/{k}")
     return mb, k
+
+
+# ---------------------------------------------------------------------------
+# serving tier: warm batch sizes (the reference's rules, unchanged)
+# ---------------------------------------------------------------------------
+# The dynamic batcher pads coalesced request groups up to one of these
+# batch sizes, so a service keeps one executable per size and per
+# (geometry, dtype, datapath) -- every admitted group hits a warm stack
+# shape instead of building for its exact count.  Powers of two bound
+# the padding waste below 2x.
+SERVE_WARM_BATCHES = (1, 2, 4, 8, 16)
+
+
+def warm_batch_sizes(max_batch: int) -> tuple:
+    """The warm sizes a service with admission limit ``max_batch`` keeps
+    compiled: table entries up to ``max_batch``, plus ``max_batch``
+    itself (an off-table limit still gets an exact-fit executable)."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    sizes = [b for b in SERVE_WARM_BATCHES if b <= max_batch]
+    if not sizes or sizes[-1] != max_batch:
+        sizes.append(max_batch)
+    return tuple(sizes)
+
+
+#: routed keys at/above this geometry get a trimmed warm ladder: a
+#: multi-tenant router keeping the full ladder for every resident giant
+#: geometry would hold that many warm stacks' plans and buffers per
+#: route, which the LRU eviction exists to bound.
+ROUTER_TRIM_N = 509
+
+
+def router_warm_sizes(n: int, max_batch: int) -> tuple:
+    """Warm batch sizes for one routed ``(geometry, dtype, datapath)``
+    key: the full :func:`warm_batch_sizes` ladder for small geometries,
+    trimmed to ``(1, max_batch)`` once ``n >= ROUTER_TRIM_N``."""
+    if n >= ROUTER_TRIM_N and max_batch > 1:
+        return (1, int(max_batch))
+    return warm_batch_sizes(max_batch)
+
+
+def nearest_warm_batch(count: int, sizes) -> int:
+    """Smallest warm size >= ``count`` (the padding target for one
+    coalesced batch).  ``count`` above every size is a caller bug: the
+    admission loop never collects more than the largest warm size."""
+    for b in sizes:
+        if b >= count:
+            return int(b)
+    raise ValueError(f"batch of {count} exceeds warm sizes {tuple(sizes)}")

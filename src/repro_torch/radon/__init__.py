@@ -26,8 +26,10 @@ subsystem (``solve``, ``SolveResult``, ``METHODS``, ``MaskedDPRT``,
 ``direction_mask``, ``ReconstructionOperator``, ``solve_operator``:
 Sherman-Morrison for unmasked data, CG / LSQR / Landweber otherwise,
 each CG iteration one fused ``mul`` pipeline call), ambient config
-scopes, build accounting and the plan layer.  The AOT cache is not
-ported yet.
+scopes, build accounting, the plan layer, and the AOT surface
+(``op.lower`` / ``compile`` / ``cache_token`` / ``export_executable`` /
+``import_executable``, :class:`Executable`, the in-process cache and
+:class:`PersistentAOTCache` on disk, :func:`aot_fingerprint`).
 """
 from ..core.plan import (Backend, RadonPlan, available_backends,
                          backend_capabilities, get_backend, get_plan,
@@ -41,10 +43,12 @@ from .autodiff import (RetraceError, reset_trace_counts, retrace_guard,
                        trace_count, trace_counts)
 from .fusion import flip_image, flip_lanes, pipeline_apply
 from .masking import MaskedDPRT, direction_mask
-from .operators import (DPRT, CompositeOperator, Conv2D,
-                        FusedProjectionPipeline, ProjectionFilter,
-                        RadonOperator, conv2d_from_description,
-                        operator_for, projection_filter_from_numpy)
+from .operators import (DPRT, CompositeOperator, Conv2D, Executable,
+                        FusedProjectionPipeline, Lowered, PersistentAOTCache,
+                        ProjectionFilter, RadonOperator, aot_cache_clear,
+                        aot_cache_info, aot_fingerprint,
+                        conv2d_from_description, operator_for,
+                        projection_filter_from_numpy)
 from .solve import (METHODS, ReconstructionOperator, SolveResult, solve,
                     solve_operator)
 
@@ -52,6 +56,8 @@ __all__ = [
     "DPRT", "Conv2D", "ProjectionFilter", "FusedProjectionPipeline",
     "RadonOperator", "CompositeOperator", "operator_for",
     "conv2d_from_description", "projection_filter_from_numpy",
+    "Executable", "Lowered", "aot_cache_info", "aot_cache_clear",
+    "PersistentAOTCache", "aot_fingerprint",
     "pipeline_apply", "flip_image", "flip_lanes",
     # reconstruction subsystem
     "solve", "SolveResult", "METHODS", "MaskedDPRT", "direction_mask",

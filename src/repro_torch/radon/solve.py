@@ -1,8 +1,9 @@
 """Iterative reconstruction over DPRT operators: ``radon.solve``.
 
-The port of :mod:`repro.radon.solve` (without the AOT methods of
-:class:`ReconstructionOperator` -- ``lower`` / ``cache_token`` /
-``export_executable`` / ``import_executable``: ROADMAP Queue 1 item 8).
+The port of :mod:`repro.radon.solve`, with the AOT surface of
+:class:`ReconstructionOperator` (``lower`` / ``compile`` /
+``cache_token`` / ``export_executable`` / ``import_executable``, as on
+the transform operators: :mod:`repro_torch.radon.operators`).
 Weighted / partial-data least squares
 
     min_x || d * (A x - b) ||_2^2,      d = mask * weight
@@ -57,9 +58,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core.dprt import dtype_name
 from .autodiff import plan_applier
 from .masking import MaskedDPRT
-from .operators import DPRT, ProjectionFilter
+from .operators import (DPRT, ProjectionFilter, _AOTSurface, _digest,
+                        _knob_token, _plan_record, _topology_token)
 
 __all__ = ["METHODS", "SolveResult", "solve", "solve_operator",
            "ReconstructionOperator", "ITERATIONS", "reset_iteration_counts"]
@@ -450,14 +453,16 @@ def solve(op, sinogram, method: str = "auto", *, mask=None, weight=None,
 # ---------------------------------------------------------------------------
 # the servable operator surface
 # ---------------------------------------------------------------------------
-class ReconstructionOperator:
+class ReconstructionOperator(_AOTSurface):
     """``sinogram -> reconstructed image`` as an operator.
 
     Wraps one :class:`~repro_torch.radon.MaskedDPRT` + solver
     configuration with the operator contract (``shape_in`` /
-    ``dtype_in``, ``@``, ``compile()``).  ``__call__`` returns the image
-    only -- diagnostics stay on :func:`solve` -- so it chains like any
-    other stage.
+    ``dtype_in``, ``@``) and the AOT surface (``compile(device)`` builds
+    the kernels and the solver body with one warm solve of an all-ones
+    sinogram; ``device`` must be the diagonal's).  ``__call__`` returns
+    the image only -- diagnostics stay on :func:`solve` -- so it chains
+    like any other stage.
     """
 
     __slots__ = ("masked", "solver", "tol", "maxiter", "tau",
@@ -516,15 +521,32 @@ class ReconstructionOperator:
         from .operators import _compose
         return _compose(self, other)
 
-    def compile(self, device="cuda") -> "ReconstructionOperator":
-        """Build what this operator runs on ``device`` (the diagonal's
-        device) -- the kernels and the solver body -- with one warm
-        solve of an all-ones sinogram, and return the operator."""
-        device = torch.device(device)
-        self(torch.ones(self.shape_in, dtype=self.dtype_in, device=device))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    # -- AOT ---------------------------------------------------------------
+    def _aot_key(self, device):
+        return ("recon", self.plan, self.solver, self.maxiter, self.tol,
+                self.tau, self.precond_kind, id(self.masked.d), str(device))
+
+    def _aot_pins(self) -> tuple:
+        return tuple(t for t in (self.masked.d, self.precond_w)
+                     if t is not None)
+
+    def _aot_plan(self) -> dict:
+        return _plan_record(self.plan)
+
+    def _aot_prepare(self, device):
         return self
+
+    def cache_token(self, device="cuda") -> str:
+        """Like the transform operators' token, plus the solver knobs and
+        a digest of the diagonal (and preconditioner)."""
+        pl = self.plan
+        shape = "x".join(str(s) for s in self.shape_in)
+        return (f"recon_{shape}_{dtype_name(self.dtype_in)}_{pl.method}_"
+                f"{self.solver}_t{self.tol:g}_i{self.maxiter}_"
+                f"p{self.precond_kind}_"
+                f"d{_digest(self.masked.d, self.precond_w)}_"
+                f"{_knob_token(pl)}_"
+                f"{_topology_token(torch.device(device), pl.mesh)}")
 
     def describe(self) -> dict:
         d = dict(self.plan.describe())

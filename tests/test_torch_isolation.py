@@ -53,7 +53,11 @@ def test_port_has_the_slice_modules():
                 "launch/serve.py",
                 "core/distributed.py", "launch/mesh.py",
                 "launch/service.py", "data/synthetic.py",
-                "configs/radon_251.py"):
+                "configs/radon_251.py",
+                "checkpoint/store.py", "launch/errors.py",
+                "launch/faults.py", "launch/router.py", "launch/pool.py",
+                "launch/supervisor.py", "radon/healthz.py",
+                "radon/selfcheck.py"):
         assert mod in rel, mod
     for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))

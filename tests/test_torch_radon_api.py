@@ -146,7 +146,6 @@ def test_serve_smoke_slice_matches_reference():
 def test_serve_refuses_what_is_not_ported():
     from repro_torch.launch import serve
     for argv, item in ((["--mode", "lm"], "item 10"),
-                       (["--mode", "service"], "item 8"),
                        (["--mesh-shape", "2,2"], "needs 4 ranks")):
         with pytest.raises(SystemExit, match=item):
             serve.main(argv + ["--device", "cpu", "--smoke"])
@@ -158,3 +157,7 @@ def test_serve_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--smoke"])
+        # --mode service and pool are ported: on the card by default
+        for mode in ("service", "pool"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                serve.main(["--mode", mode, "--smoke"])

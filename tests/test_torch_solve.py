@@ -479,7 +479,9 @@ def test_solve_operator_surface():
     assert ro.dtype_in == ro.dtype_out == float_dtype_for(torch.int32)
     m = TR.MaskedDPRT(TR.DPRT((n, n), torch.int32), mask=mask)
     b = m(_t(rand_img(n, seed=10)))
-    assert ro.compile(CPU) is ro
+    exe = ro.compile(CPU)        # the executable, cached per device
+    assert isinstance(exe, TR.Executable) and ro.compile(CPU) is exe
+    assert torch.equal(exe(b), ro(b))
     np.testing.assert_allclose(ro(b).numpy(),
                                TR.solve(m, b, tol=1e-7,
                                         maxiter=150).image.numpy(),
