@@ -6,10 +6,10 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-six main paths -- five of the ``radon_251`` configuration (256 phantom
-images of 251 x 251, int32; the serving tier at N = 251) and the
-giant-N path -- each with the launch counts set to 0 just before it and
-read just after:
+seven main paths -- five of the ``radon_251`` configuration (256 phantom
+images of 251 x 251, int32; the serving tier at N = 251), the giant-N
+path and the LM substrate's serving path -- each with the launch counts
+set to 0 just before it and read just after:
 
 1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
    and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
@@ -54,7 +54,18 @@ read just after:
    ``faults.corrupt_blobs``); the router under seeded chaos with a
    manifest of N in (13, 31, 251); and a pool of two worker processes on
    the card, one SIGKILLed mid-traffic, every request answered once and
-   exactly.
+   exactly;
+7. the LM substrate's serving path (plain PyTorch: the reference's
+   substrate has no Pallas kernel, so none of K1-K5 may launch):
+   ``python -m repro_torch.launch.serve --mode lm`` at its defaults
+   (tinyllama-1.1b at full depth and width, float32 weights from seed
+   0, batch 8, prompt 32, 16 greedy tokens); its prefill logits and
+   tokens against the port's CPU run on the same weights, prefill +
+   decode against teacher forcing, prefill and decode timed by CUDA
+   events at prompt 32 / 16 and 512 / 128 beside their bounds, and one
+   decode step profiled; the nine other architectures at published
+   width, cut to one block pattern in depth (``lm_cut``), against
+   teacher forcing; every smoke config on the card against the CPU.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
@@ -67,7 +78,8 @@ per image), the streamed kernel by directions per block; and profiles
 one ``Conv2D`` call of the pipeline path and one of the mesh path.
 
 Output: progress lines, a ``{"serving": {...}}`` JSON line of the
-serving phase's numbers, then a ``{"kernels": [...]}`` JSON line, the
+serving phase's numbers, an ``{"lm": {...}}`` line of the LM phase's,
+then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line; so does a machine without a CUDA card, or a directory that
@@ -3108,6 +3120,367 @@ def pool_phase() -> dict:
             "req_per_s": SERVE_REQUESTS / wall}
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate's serving path (plain PyTorch: no hand-written kernel)
+# ---------------------------------------------------------------------------
+LM_DEVICE = "cuda"
+LM_ARCH = "tinyllama_1_1b"
+#: serve --mode lm's defaults: batch 8, prompt 32, 16 generated
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 16
+#: (prompt, generated) shapes timed at LM_BATCH
+LM_TIMING = ((LM_PROMPT, LM_GEN), (512, 128))
+LM_TIMING_REPS = 3
+LM_PROFILE_STEPS = 4
+#: the prefill-then-decode check: batch, prompt (past any patch prefix)
+LM_CHECK_B, LM_CHECK_S = 2, 40
+#: the reference test's bounds (tests/test_models.py:65-71), relative to
+#: the peak of the teacher-forced logits
+LM_PREFILL_REL, LM_DECODE_REL = 1e-4, 2e-3
+#: the card against the port's own CPU run, relative to the logits' peak
+LM_CPU_REL = 1e-3
+#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def lm_cut(cfg):
+    """A published-width config cut in depth to one block pattern: the
+    dense first layers plus one pattern, at least 2 layers; an encoder
+    keeps 2 layers at its full ``encoder_seq``."""
+    kw = {"num_layers": max(2, cfg.first_dense_layers
+                            + len(cfg.block_pattern))}
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+    return cfg.replace(**kw)
+
+
+def lm_no_drops(cfg):
+    """MoE capacity past every token, so forward(S+1) and prefill(S) +
+    decode route alike (as the reference's own check does)."""
+    if cfg.num_experts:
+        return cfg.replace(capacity_factor=float(cfg.num_experts))
+    return cfg
+
+
+def lm_inputs(cfg, b: int, s: int, dev, seed: int = 7) -> dict:
+    """Random tokens (and stub front-end embeddings) from a seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))
+           .astype(np.int32)}
+    if cfg.frontend == "patch_stub":
+        out["patch_embed"] = rng.normal(
+            size=(b, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        out["audio_embed"] = rng.normal(
+            size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def lm_model(cfg, device, seed: int = 0, init_device=None):
+    """The model with float32 weights from ``seed``, drawn on
+    ``init_device`` (default ``device``) and copied to ``device``."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import init_params
+    model = Model(cfg)
+    tree = init_params(model.specs(), seed, torch.float32,
+                       init_device or device)
+    return model.load_params(tree_to(tree, device))
+
+
+def lm_teacher_forcing(label: str, model, s: int) -> tuple:
+    """prefill(S) + one decode_step equal forward(S+1) at positions S-1
+    and S within the reference test's bounds; returns both errors."""
+    import torch
+    dev = model._param().device
+    batch = lm_inputs(model.cfg, LM_CHECK_B, s + 1, dev)
+    pre = dict(batch, tokens=batch["tokens"][:, :s])
+    with torch.inference_mode():
+        ref, _ = model.forward(batch)
+        last, cache = model.prefill(pre, max_len=s + 8)
+        dec, _ = model.decode_step(cache, batch["tokens"][:, s:s + 1], s)
+    for name, t in (("forward", ref), ("prefill", last), ("decode", dec)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{label}: non-finite {name} logits")
+    scale = float(ref[:, s - 1].abs().max()) + 1e-9
+    err_pre = float((ref[:, s - 1] - last[:, 0]).abs().max()) / scale
+    err_dec = float((ref[:, s] - dec[:, 0]).abs().max()) / scale
+    if err_pre > LM_PREFILL_REL or err_dec > LM_DECODE_REL:
+        fail(f"{label}: prefill {err_pre:.2e} / decode {err_dec:.2e} off "
+             f"forward(S+1), bounds {LM_PREFILL_REL} / {LM_DECODE_REL}")
+    return err_pre, err_dec
+
+
+def lm_greedy(model, batch: dict, gen: int) -> tuple:
+    """Greedy tokens (CPU), the prefill logits, and each step's top-2
+    margin over the logits' peak (B, gen)."""
+    import torch
+    prompt = batch["tokens"].shape[1]
+    margins = []
+    with torch.inference_mode():
+        logits, cache = model.prefill(batch, max_len=prompt + gen)
+        first = logits[:, -1].float().cpu()
+        toks = []
+        for i in range(gen):
+            if i:
+                logits, cache = model.decode_step(cache, toks[-1],
+                                                  prompt + i - 1)
+            lg = logits[:, -1].float()
+            top = torch.topk(lg, 2, dim=-1).values
+            margins.append(((top[:, 0] - top[:, 1])
+                            / lg.abs().amax(-1)).cpu())
+            toks.append(lg.argmax(-1)[:, None].to(torch.int32))
+    return (torch.cat(toks, 1).cpu(), first,
+            torch.stack(margins, 1).numpy())
+
+
+def lm_check_card_vs_cpu(label: str, card_model, cpu_model, batch: dict,
+                         gen: int, card_tokens=None) -> dict:
+    """The card's prefill logits within LM_CPU_REL of the CPU's peak, and
+    its greedy tokens (``card_tokens``, else a greedy run on the card)
+    equal to the CPU's up to each row's first step where the CPU's top-2
+    margin is within LM_CPU_REL."""
+    import torch
+    cpu_tokens, cpu_first, margins = lm_greedy(
+        cpu_model, tree_to(batch, "cpu"), gen)
+    if card_tokens is None:
+        tokens, card_first, _ = lm_greedy(card_model, batch, gen)
+    else:
+        tokens = card_tokens
+        with torch.inference_mode():
+            card_first = card_model.prefill(batch)[0][:, -1].float().cpu()
+    err = float((card_first - cpu_first).abs().max()) / (
+        float(cpu_first.abs().max()) + 1e-9)
+    if err > LM_CPU_REL:
+        fail(f"{label}: prefill logits {err:.2e} of the peak off the "
+             f"CPU's (bound {LM_CPU_REL})")
+    near = 0
+    for row in range(tokens.shape[0]):
+        diff = torch.nonzero(tokens[row] != cpu_tokens[row]).flatten()
+        if diff.numel():
+            step = int(diff[0])
+            if margins[row, step] > LM_CPU_REL:
+                fail(f"{label}: row {row} step {step}: token "
+                     f"{int(tokens[row, step])} on the card, "
+                     f"{int(cpu_tokens[row, step])} on the CPU at a margin "
+                     f"of {margins[row, step]:.2e}")
+            near += 1
+    return {"prefill_rel": err, "rows_equal": tokens.shape[0] - near,
+            "rows_near_tie": near}
+
+
+def lm_time(model, batch: dict, gen: int) -> tuple:
+    """(prefill ms, decode ms per step) of one greedy generation, by CUDA
+    events, the median of LM_TIMING_REPS runs after one warm run."""
+    import torch
+    prompt = batch["tokens"].shape[1]
+    pre, dec = [], []
+    for rep in range(LM_TIMING_REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.inference_mode():
+            ev[0].record()
+            logits, cache = model.prefill(batch, max_len=prompt + gen)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            ev[1].record()
+            for i in range(gen - 1):
+                logits, cache = model.decode_step(cache, tok, prompt + i)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            ev[2].record()
+        ev[2].synchronize()
+        if rep:
+            pre.append(ev[0].elapsed_time(ev[1]))
+            dec.append(ev[1].elapsed_time(ev[2]) / (gen - 1))
+        del cache
+    return statistics.median(pre), statistics.median(dec)
+
+
+def lm_profile_decode(model, batch: dict) -> dict:
+    """Kernels launched per decode step and the device's busy share of
+    the host wall over LM_PROFILE_STEPS steps (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prompt = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        logits, cache = model.prefill(batch,
+                                      max_len=prompt + LM_PROFILE_STEPS + 1)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        model.decode_step(cache, tok, prompt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, LM_PROFILE_STEPS + 1):
+                logits, cache = model.decode_step(cache, tok, prompt + i)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
+            busy_us += us
+    if not kernels:
+        log("lm: the profiler saw no device time (not measured)")
+        return {"kernels_per_step": None, "busy_share": None}
+    return {"kernels_per_step": kernels / LM_PROFILE_STEPS,
+            "busy_share": busy_us / 1e3 / wall_ms,
+            "host_ms_per_step": wall_ms / LM_PROFILE_STEPS}
+
+
+def lm_bounds(cfg, n_params: int, b: int, prompt: int, gen: int) -> dict:
+    """The least time the card could take (dense attention models):
+    decode reads every weight once per step (the embedding table only
+    its b rows, unless it is tied to the output) and the valid K/V
+    prefix, at HBM rate; prefill does 2 flops per weight per prompt
+    token (the output projection for the last position only) and the
+    causal half of the attention products, at the float32 peak."""
+    emb = cfg.padded_vocab * cfg.d_model
+    read = n_params - (0 if cfg.tie_embeddings else emb) + b * cfg.d_model
+    kv_row = 2 * cfg.num_layers * b * cfg.num_kv_heads * cfg.hd
+    kv_mean = kv_row * (prompt + (gen + 1) / 2)     # valid prefix, mean
+    decode_ms = 1e3 * 4 * (read + kv_mean) / HBM_BYTES_PER_S
+    body = n_params - emb * (1 if cfg.tie_embeddings else 2)
+    flops = (2 * body * b * prompt + 2 * emb * b
+             + 2 * cfg.num_layers * b * cfg.num_heads * cfg.hd * prompt ** 2)
+    prefill_ms = 1e3 * max(flops / F32_FLOPS_PER_S,
+                           4 * n_params / HBM_BYTES_PER_S)
+    return {"decode_bound_ms": decode_ms, "decode_bytes": 4 * read,
+            "prefill_bound_ms": prefill_ms, "prefill_flops": flops}
+
+
+def lm_phase() -> dict:
+    """``serve --mode lm`` on the card: tinyllama-1.1b at full depth and
+    width through the CLI (no K1-K5 launch), held against the port's CPU
+    run on the same weights and timed; the other nine architectures at
+    published width with the depth cut (``lm_cut``); every smoke config
+    on the card against the CPU."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import count_params
+
+    dev = torch.device(LM_DEVICE)
+    t_phase = time.perf_counter()
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        fail(f"float32 matmul precision is {precision!r}, not 'highest'")
+    # -- the main path: the serve CLI at its defaults --------------------
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    ST.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = serve.main(["--mode", "lm", "--arch", LM_ARCH,
+                         "--device", LM_DEVICE])
+    serve_s = time.perf_counter() - t0
+    kernel_launches = (S.LAUNCHES + sum(P.OP_LAUNCHES.values())
+                       + sum(P.TAIL_OP_LAUNCHES.values()) + ST.LAUNCHES)
+    if kernel_launches:
+        fail(f"the LM path launched {kernel_launches} of K1-K5")
+    if tuple(served.shape) != (LM_BATCH, LM_GEN):
+        fail(f"serve --mode lm returned {tuple(served.shape)}")
+    cfg = get_config(LM_ARCH)
+    if not bool(((served >= 0) & (served < cfg.vocab_size)).all()):
+        fail("serve --mode lm returned tokens outside the vocabulary")
+    log(f"lm: serve --mode lm --arch {LM_ARCH} (batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {LM_GEN} generated) in {serve_s:.2f} s, K1-K5 "
+        f"launches 0")
+
+    # -- tinyllama at full size: checks, timing, profile -----------------
+    model = lm_model(cfg, dev)
+    n_params = count_params(model.specs())
+    batch = serve.lm_batch(cfg, LM_BATCH, LM_PROMPT, dev)
+    tf = lm_teacher_forcing(LM_ARCH, model, LM_CHECK_S)
+    cpu_model = lm_model(cfg, "cpu", init_device=dev)
+    cpu_check = lm_check_card_vs_cpu(LM_ARCH, model, cpu_model, batch,
+                                     LM_GEN, card_tokens=served)
+    del cpu_model
+    log(f"lm: {LM_ARCH} ({n_params} parameters): prefill / decode "
+        f"{tf[0]:.2e} / {tf[1]:.2e} off forward(S+1); card vs CPU "
+        f"{json.dumps(cpu_check)}")
+    timings = []
+    for prompt, gen in LM_TIMING:
+        tb = serve.lm_batch(cfg, LM_BATCH, prompt, dev)
+        torch.cuda.reset_peak_memory_stats()
+        pre_ms, dec_ms = lm_time(model, tb, gen)
+        peak = torch.cuda.max_memory_allocated()
+        total_s = (pre_ms + (gen - 1) * dec_ms) / 1e3
+        row = {"batch": LM_BATCH, "prompt": prompt, "gen": gen,
+               "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+               "tokens_per_s": LM_BATCH * gen / total_s,
+               "decode_tokens_per_s": LM_BATCH / (dec_ms / 1e3),
+               "peak_mem_bytes": peak}
+        row.update(lm_bounds(cfg, n_params, LM_BATCH, prompt, gen))
+        timings.append(row)
+        log(f"lm: {LM_ARCH} b={LM_BATCH} prompt={prompt} gen={gen}: "
+            f"prefill {pre_ms:.3f} ms (bound {row['prefill_bound_ms']:.3f})"
+            f", decode {dec_ms:.3f} ms/step (weight-read bound "
+            f"{row['decode_bound_ms']:.3f}), {row['tokens_per_s']:.1f} "
+            f"tok/s, peak {peak / 2 ** 30:.2f} GiB")
+    profile_row = lm_profile_decode(model, batch)
+    log(f"lm: decode step profile {json.dumps(profile_row)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- the other nine at published width, depth cut --------------------
+    archs = {}
+    for arch in ARCH_IDS:
+        if arch == LM_ARCH:
+            continue
+        t1 = time.perf_counter()
+        cut = lm_no_drops(lm_cut(get_config(arch)))
+        m = lm_model(cut, dev)
+        s = LM_CHECK_S + (cut.prefix_len if cut.frontend == "patch_stub"
+                          else 0)
+        err_pre, err_dec = lm_teacher_forcing(arch, m, s)
+        tb = lm_inputs(cut, LM_CHECK_B, s, dev, seed=8)
+        pre_ms, dec_ms = lm_time(m, tb, 8)
+        archs[arch] = {"layers": cut.num_layers,
+                       "encoder_layers": cut.encoder_layers,
+                       "params": count_params(m.specs()),
+                       "prefill_rel": err_pre, "decode_rel": err_dec,
+                       "batch": LM_CHECK_B, "prompt": s,
+                       "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms}
+        del m
+        torch.cuda.empty_cache()
+        log(f"lm: {arch} cut to {cut.num_layers} layers at d_model "
+            f"{cut.d_model}: prefill / decode {err_pre:.2e} / "
+            f"{err_dec:.2e} off forward(S+1); b={LM_CHECK_B} S={s}: "
+            f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms/step "
+            f"({time.perf_counter() - t1:.1f} s)")
+
+    # -- every smoke config: the card against the CPU --------------------
+    smoke = {}
+    for arch in ARCH_IDS:
+        scfg = get_smoke_config(arch)
+        card = lm_model(scfg, dev, init_device="cpu")
+        cpu = lm_model(scfg, "cpu")
+        sb = serve.lm_batch(scfg, LM_BATCH, LM_PROMPT, dev)
+        smoke[arch] = lm_check_card_vs_cpu(f"{arch} smoke", card, cpu, sb,
+                                           LM_GEN)
+        lm_teacher_forcing(f"{arch} smoke", lm_model(
+            lm_no_drops(scfg), dev, init_device="cpu"), LM_CHECK_S)
+    log(f"lm: smoke configs, card vs CPU: {json.dumps(smoke)}")
+    return {"arch": LM_ARCH, "params": n_params, "float32_precision":
+            precision, "serve_s": serve_s, "teacher_forcing": tf,
+            "card_vs_cpu": cpu_check, "timing": timings,
+            "decode_profile": profile_row, "archs": archs,
+            "smoke_card_vs_cpu": smoke, "card": nvidia_smi_line(),
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -3148,8 +3521,10 @@ def main() -> int:
     pipeline_profile_phase()
     pipeline_profile_phase(mesh=True)
     close_world()
+    lm = lm_phase()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
 """Deterministic synthetic data (numpy), copied from the reference."""
-from .synthetic import phantom_image, radon_images
+from .synthetic import TokenStream, phantom_image, radon_images
 
-__all__ = ["phantom_image", "radon_images"]
+__all__ = ["TokenStream", "phantom_image", "radon_images"]

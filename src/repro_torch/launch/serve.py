@@ -1,6 +1,8 @@
-"""Serving launcher of the port: the DPRT image service and its tier.
+"""Serving launcher of the port: batched LM decode, the DPRT image
+service and its tier.
 
     python -m repro_torch.launch.serve --mode radon [--smoke] [--device cuda]
+    python -m repro_torch.launch.serve --mode lm [--arch A] [--smoke] ...
     python -m repro_torch.launch.serve --mode service [--datapath D] ...
     python -m repro_torch.launch.serve --mode pool [--workers W] ...
 
@@ -54,10 +56,20 @@ Three sub-modes grow it into the multi-tenant tier:
 processes (:mod:`repro_torch.launch.supervisor`) over one shared
 ``--aot-dir``; with ``--chaos`` one worker is SIGKILLed mid-burst.
 
+``--mode lm`` serves the LM substrate (:mod:`repro_torch.models`): it
+builds ``--arch`` (``--smoke``: its reduced config) with float32 weights
+drawn from seed 0, takes ``--batch`` prompts of ``--prompt-len`` tokens
+from ``TokenStream`` (zero stub embeddings for the audio and patch
+front ends), prefills a cache of prompt + ``--gen-tokens`` positions and
+decodes greedily, the tokens kept on the device until the end, all
+under ``torch.inference_mode()``.  It prints the ``[serve-lm]`` line and
+a sample and returns the generated tokens.  The substrate has no
+hand-written kernel (the reference's has no Pallas kernel): it runs
+PyTorch's own operators at its default float32 matmul precision.
+
 Runs on the card (``--device cuda``, the default) and raises when there
 is none; ``--device cpu`` runs the kernels' plain versions (a mesh then
-runs over gloo; pool workers get the same ``--device``).  Not ported
-yet, and refused with the ROADMAP item that ports it: ``--mode lm``.
+runs over gloo; pool workers get the same ``--device``).
 """
 from __future__ import annotations
 
@@ -72,18 +84,70 @@ import torch
 import torch.distributed as dist
 
 from .. import radon
+from ..configs import get_config, get_smoke_config
 from ..configs.radon_251 import config as radon_config, \
     smoke_config as radon_smoke
 from ..core.plan import METHOD_ALIASES, available_backends, \
     backend_capabilities, get_backend
-from ..data.synthetic import radon_images
+from ..data.synthetic import TokenStream, radon_images
+from ..models import Model
+from ..parallel.sharding import init_params
 from .service import (DPRTService, format_latency, latency_summary,
                       resolve_device)
 
-#: flags of the reference's serve CLI that the port refuses for now
-NOT_PORTED = {
-    "--mode lm": "ROADMAP Queue 1 item 10 (LM substrate)",
-}
+
+def lm_batch(mcfg, batch: int, prompt_len: int, device) -> dict:
+    """The LM service's input: ``TokenStream`` prompts (seed 0, step 0)
+    and, for a stub front end, zero audio frames or patch embeddings."""
+    stream = TokenStream(mcfg.vocab_size, prompt_len, batch)
+    out = {"tokens": torch.from_numpy(stream.batch(0)["tokens"]).to(device)}
+    if mcfg.frontend == "audio_stub":
+        out["audio_embed"] = torch.zeros(
+            (batch, mcfg.encoder_seq, mcfg.d_model), device=device)
+    if mcfg.frontend == "patch_stub":
+        out["patch_embed"] = torch.zeros(
+            (batch, mcfg.prefix_len, mcfg.d_model), device=device)
+    return out
+
+
+@torch.inference_mode()
+def greedy_generate(model: Model, batch: dict, gen_tokens: int):
+    """One prefill of a cache of prompt + ``gen_tokens`` positions, then
+    greedy decode steps; returns the (B, gen_tokens) int32 tokens, left
+    on the device."""
+    prompt_len = batch["tokens"].shape[1]
+    logits, cache = model.prefill(batch, max_len=prompt_len + gen_tokens)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    out = [tok]
+    for i in range(gen_tokens - 1):
+        logits, cache = model.decode_step(cache, tok, prompt_len + i)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def serve_lm(args) -> torch.Tensor:
+    """Prefill a batch of prompts, then greedy-decode ``--gen-tokens``;
+    returns the generated tokens (B, gen) on the CPU."""
+    device = resolve_device(args.device)
+    mcfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    model = Model(mcfg)
+    model.load_params(init_params(model.specs(), 0, torch.float32, device))
+    batch = lm_batch(mcfg, args.batch, args.prompt_len, device)
+    print(f"[serve-lm] device={device} float32 matmul precision="
+          f"{torch.get_float32_matmul_precision()}")
+
+    t0 = time.perf_counter()
+    gen = greedy_generate(model, batch, args.gen_tokens)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    gen = gen.cpu()
+    tps = args.batch * args.gen_tokens / dt
+    print(f"[serve-lm] {mcfg.name}: batch={args.batch} "
+          f"prompt={args.prompt_len} gen={args.gen_tokens} "
+          f"-> {tps:.1f} tok/s  ({dt:.2f}s)")
+    print("  sample:", gen[0, :16].tolist())
+    return gen
 
 
 def parse_mesh_shape(spec, device: torch.device):
@@ -726,8 +790,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--mode", choices=["lm", "radon", "service", "pool"],
                     default="radon")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="--mode lm: the architecture (configs.ARCH_IDS "
+                         "or its dashed alias)")
     ap.add_argument("--smoke", action="store_true",
-                    help="the smoke config (N=31, batch 8)")
+                    help="the smoke config (radon: N=31, batch 8; lm: "
+                         "the architecture's reduced config)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--method", default="auto", choices=methods,
                     help="DPRT strategy (auto = registry pick: the cuda "
@@ -817,12 +885,15 @@ def main(argv=None):
                          "worker processes")
     ap.add_argument("--list-backends", action="store_true",
                     help="print the backend capability table and exit")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="--mode lm: prompt tokens per sequence")
+    ap.add_argument("--gen-tokens", type=int, default=16,
+                    help="--mode lm: tokens generated per sequence")
     args = ap.parse_args(argv)
     if args.list_backends:
         return list_backends()
     if args.mode == "lm":
-        raise SystemExit(f"--mode {args.mode} is not ported to repro_torch "
-                         f"yet: {NOT_PORTED['--mode ' + args.mode]}")
+        return serve_lm(args)
     if args.mode == "pool":
         if args.chaos:
             return serve_pool_chaos(args)

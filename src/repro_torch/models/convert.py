@@ -1,0 +1,69 @@
+"""Weights carried across: the reference's parameter tree <-> the port's.
+
+The reference keeps its parameters as a pytree of nested dicts; the
+port's :class:`~repro_torch.models.Model` keeps the same leaves under the
+same keys and in the same layouts (``(d_in, d_out)`` projections, the
+stacked body's leading layer axis), so the conversion is name for name
+with no transposes.  Pass the reference's tree as numpy arrays (e.g.
+``jax.tree.map(np.asarray, params)``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .lm import Model, check_tree
+
+__all__ = ["params_from_reference", "params_to_numpy"]
+
+
+def _floating(path: str, arr: np.ndarray) -> np.ndarray:
+    if arr.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: via float32
+        return arr.astype(np.float32)
+    if arr.dtype.kind != "f":
+        raise TypeError(f"{path}: dtype {arr.dtype}, parameters are floating")
+    return arr
+
+
+def params_from_reference(model: Model, tree, device="cuda",
+                          dtype=None) -> Model:
+    """Load the reference's parameter tree (numpy leaves) into ``model``.
+
+    Raises when a leaf is missing or extra, has another shape than the
+    model's spec, or is not floating, or when the leaves' dtypes differ.
+    ``dtype`` (a torch dtype) casts every leaf; by default each keeps its
+    own (a bfloat16 tree stays bfloat16).
+    """
+    check_tree(tree, model.specs())
+    dtypes = set()
+
+    def one(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: one(f"{path}.{k}" if path else k, v)
+                    for k, v in leaf.items()}
+        arr = np.asarray(leaf)
+        dtypes.add(arr.dtype.name)
+        t = torch.from_numpy(np.array(_floating(path, arr)))
+        if arr.dtype.name == "bfloat16":
+            t = t.to(torch.bfloat16)
+        return t.to(device=device, dtype=dtype)
+
+    params = one("", tree)
+    if len(dtypes) > 1:
+        raise TypeError(f"the tree mixes dtypes {sorted(dtypes)}")
+    return model.load_params(params)
+
+
+def params_to_numpy(model: Model) -> Dict[str, Any]:
+    """The model's parameters as a tree of numpy arrays under the
+    reference's keys (bfloat16 leaves as float32)."""
+
+    def one(leaf):
+        if isinstance(leaf, dict):
+            return {k: one(v) for k, v in leaf.items()}
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return one(model.param_tree())

@@ -57,10 +57,18 @@ def test_port_has_the_slice_modules():
                 "checkpoint/store.py", "launch/errors.py",
                 "launch/faults.py", "launch/router.py", "launch/pool.py",
                 "launch/supervisor.py", "radon/healthz.py",
-                "radon/selfcheck.py"):
+                "radon/selfcheck.py",
+                "models/config.py", "models/layers.py",
+                "models/attention.py", "models/rglru.py", "models/ssm.py",
+                "models/moe.py", "models/blocks.py", "models/lm.py",
+                "models/convert.py", "configs/registry.py",
+                "parallel/sharding.py"):
         assert mod in rel, mod
     for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
+    from repro_torch.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        assert f"configs/{arch}.py" in rel, arch
 
 
 @pytest.mark.parametrize("path", _port_files(),

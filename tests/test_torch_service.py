@@ -450,9 +450,13 @@ def test_serve_cli_service_smoke(capsys, datapath):
 
 
 def test_serve_cli_refuses_only_lm():
-    assert set(TSERVE.NOT_PORTED) == {"--mode lm"}
-    with pytest.raises(SystemExit, match="not ported"):
-        TSERVE.main(["--mode", "lm", "--device", "cpu"])
+    """Every mode of the reference's serve CLI is ported now: ``--mode
+    lm`` runs (it was the last one refused)."""
+    assert not hasattr(TSERVE, "NOT_PORTED")
+    gen = TSERVE.main(["--mode", "lm", "--device", "cpu", "--smoke",
+                       "--batch", "1", "--prompt-len", "4",
+                       "--gen-tokens", "2"])
+    assert tuple(gen.shape) == (1, 2)
 
 
 def test_serve_cli_float_responses_agree_within_tolerance():
