@@ -6,10 +6,10 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-seven main paths -- five of the ``radon_251`` configuration (256 phantom
+eight main paths -- five of the ``radon_251`` configuration (256 phantom
 images of 251 x 251, int32; the serving tier at N = 251), the giant-N
-path and the LM substrate's serving path -- each with the launch counts
-set to 0 just before it and read just after:
+path and the LM substrate's serving and training paths -- each with the
+launch counts set to 0 just before it and read just after:
 
 1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
    and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
@@ -65,7 +65,18 @@ set to 0 just before it and read just after:
    events at prompt 32 / 16 and 512 / 128 beside their bounds, and one
    decode step profiled; the nine other architectures at published
    width, cut to one block pattern in depth (``lm_cut``), against
-   teacher forcing; every smoke config on the card against the CPU.
+   teacher forcing; every smoke config on the card against the CPU;
+8. the LM substrate's training path (plain PyTorch; none of K1-K5 may
+   launch): ``python -m repro_torch.launch.train --arch tinyllama-1.1b
+   --steps 4 --batch 8 --seq 128`` at full depth and width (float32), its
+   13.2 GB checkpoint's size, save and restore times (restored equal to
+   the run's state, then deleted); ``launch.steps.make_train_step`` at
+   full width in float32 and bf16, timed by CUDA events beside its
+   bound, its peak memory and one profiled step; at the cut depth
+   (``lm_cut``): remat none / full / dots (the same loss and gradients,
+   the bytes each keeps), one ``Trainer`` step on the card against the
+   CPU, ``fail_at_step`` and a resumed run against an uninterrupted one,
+   and a bf16 run's checkpoint restored.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
@@ -78,8 +89,9 @@ per image), the streamed kernel by directions per block; and profiles
 one ``Conv2D`` call of the pipeline path and one of the mesh path.
 
 Output: progress lines, a ``{"serving": {...}}`` JSON line of the
-serving phase's numbers, an ``{"lm": {...}}`` line of the LM phase's,
-then a ``{"kernels": [...]}`` JSON line, the
+serving phase's numbers, an ``{"lm": {...}}`` line of the LM phase's, a
+``{"train": {...}}`` line of the training phase's, then a
+``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line; so does a machine without a CUDA card, or a directory that
@@ -88,6 +100,7 @@ holds this script without the port's sources.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3481,6 +3494,432 @@ def lm_phase() -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate's training path (plain PyTorch: no hand-written kernel)
+# ---------------------------------------------------------------------------
+TRAIN_DEVICE = "cuda"
+#: ``python -m repro_torch.launch.train`` at full width: 4 steps of batch
+#: 8 x 128 tokens, one final checkpoint (float32 params, mu and nu)
+TRAIN_CLI_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128
+TRAIN_TIMING_REPS = 5
+#: the depth-cut checks (card vs CPU, restart, bf16): batch and sequence
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 64
+#: card vs CPU after one step: the loss (relative), the grad norm
+#: (relative), the moments (of each leaf's peak)
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_MOMENT_REL = 1e-5, 1e-4, 1e-4
+#: Adam's first step moves each element by lr x g / (|g| + 1e-8) (plus
+#: the decay): an update within 1e-3 lr of the CPU's, except for at most
+#: this share of a leaf's elements, whose gradient lies within ~1e-8 of
+#: zero where that step is steep in g (those within 2.2 lr)
+TRAIN_FLIP_SHARE = 1e-2
+#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
+
+
+def dprt_kernel_launches() -> int:
+    """K1-K5 launches counted since the last reset."""
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    return (S.LAUNCHES + sum(P.OP_LAUNCHES.values())
+            + sum(P.TAIL_OP_LAUNCHES.values()) + ST.LAUNCHES)
+
+
+def train_like(model, dtype) -> dict:
+    """A checkpoint's tree (params, AdamW state) as meta tensors."""
+    from repro_torch.optim import adamw_abstract
+    from repro_torch.parallel.sharding import abstract_params
+    params = abstract_params(model.specs(), dtype)
+    return {"params": params, "opt": adamw_abstract(params)}
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import tree_items
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+
+def train_bounds(n_params: int, tokens: int, bf16: bool) -> dict:
+    """The step's least time: 8 flops per parameter per token (forward
+    2, backward 4, the full remat's second forward 2) at the float32
+    (or bf16 tensor-core) peak, plus AdamW's bytes at HBM rate --
+    float32: params read + written, grads read, mu and nu read +
+    written (28 B per parameter); bf16: 2 + 2 + 2 + 8 + 8 = 22 B."""
+    flops = 8 * n_params * tokens
+    flops_ms = 1e3 * flops / (BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+    adam_bytes = (22 if bf16 else 28) * n_params
+    adam_ms = 1e3 * adam_bytes / HBM_BYTES_PER_S
+    return {"flops": flops, "flops_ms": flops_ms, "adam_bytes": adam_bytes,
+            "adam_ms": adam_ms, "bound_ms": flops_ms + adam_ms}
+
+
+def train_profile_step(step) -> dict:
+    """Kernels launched and the device's busy share of the host wall in
+    one training step (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, busy_us, device, host = 0, 0.0, [], []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
+            busy_us += us
+            device.append((us / 1e3, e.key[:60], e.count))
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            host.append((e.self_cpu_time_total / 1e3, e.key[:60], e.count))
+    if not kernels:
+        log("train: the profiler saw no device time (not measured)")
+        return {"kernels": None, "busy_share": None, "wall_ms": wall_ms}
+    return {"kernels": kernels, "busy_share": busy_us / 1e3 / wall_ms,
+            "wall_ms": wall_ms,
+            "device_top_ms": sorted(device, reverse=True)[:6],
+            "host_self_top_ms": sorted(host, reverse=True)[:8]}
+
+
+def train_cli_run(cfg, n_params: int) -> dict:
+    """``launch.train.main`` at full width; its checkpoint's size, save
+    and restore times, restored equal to the run's state, then deleted.
+    Where the disk cannot hold the checkpoint, the depth (never the
+    width) of this one run is cut to fit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import count_params
+    ckdir = tempfile.mkdtemp(prefix="repro_train_")
+    free = shutil.disk_usage(ckdir).free
+    run_cfg = cfg
+    while 12 * count_params(Model(run_cfg).specs()) * 1.2 > free:
+        if run_cfg.num_layers == 1:
+            fail(f"train: {free} bytes free cannot hold a one-layer "
+                 f"checkpoint")
+        run_cfg = run_cfg.replace(num_layers=run_cfg.num_layers - 1)
+    get_config = train.get_config
+    if run_cfg is not cfg:
+        log(f"train: {free} bytes free cannot hold the full checkpoint "
+            f"({12 * n_params} bytes): the CLI run is cut to "
+            f"{run_cfg.num_layers} layers at d_model {run_cfg.d_model}")
+        train.get_config = lambda arch: run_cfg
+    try:
+        t0 = time.perf_counter()
+        out = train.main(["--arch", cfg.name, "--steps",
+                          str(TRAIN_CLI_STEPS), "--batch", str(TRAIN_BATCH),
+                          "--seq", str(TRAIN_SEQ), "--ckpt-every", "100",
+                          "--ckpt-dir", ckdir, "--device", TRAIN_DEVICE])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        train.get_config = get_config
+    losses = [m["loss"] for m in out["log"]] + [out["last_loss"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss in the CLI run: {losses}")
+    ck = Path(ckdir) / f"step_{TRAIN_CLI_STEPS:08d}"
+    size = dir_bytes(ck)
+    like = train_like(Model(run_cfg), torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, step, _ = restore_checkpoint(ckdir, like, device=TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != TRAIN_CLI_STEPS or not tree_equal(
+            tree, {"params": out["params"], "opt": out["opt"]}):
+        fail("train: the restored checkpoint differs from the run's state")
+    shutil.rmtree(ckdir)
+    row = {"arch": run_cfg.name, "layers": run_cfg.num_layers,
+           "params": count_params(Model(run_cfg).specs()),
+           "cut": run_cfg is not cfg, "cli_s": cli_s,
+           "losses": [m["loss"] for m in out["log"]],
+           "last_loss": out["last_loss"], "disk_free_bytes": free,
+           "ckpt_bytes": size, "ckpt_copy_s": out["checkpoint"]["copy_s"],
+           "ckpt_write_s": out["checkpoint"]["write_s"],
+           "ckpt_restore_s": restore_s}
+    log(f"train: launch.train --arch {cfg.name} ({row['layers']} layers, "
+        f"{row['params']} parameters) {TRAIN_CLI_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {cli_s:.1f} s, losses "
+        f"{row['losses']} last {out['last_loss']:.4f}; checkpoint "
+        f"{size} bytes ({free} free): host copy {row['ckpt_copy_s']:.2f} s, "
+        f"write {row['ckpt_write_s']:.2f} s, restore {restore_s:.2f} s, "
+        f"equal to the run's state")
+    del out, tree
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_timing(cfg, dtype, dev) -> dict:
+    """``launch.steps.make_train_step`` at full width, batch 8 x 128: the
+    median step (CUDA events), tokens/s, peak memory, its bound, and one
+    profiled step."""
+    import torch
+    from repro_torch.data import TokenStream, shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import count_params, init_params
+    model = Model(cfg)
+    n_params = count_params(model.specs())
+    fn, _ = steps.make_train_step(model, None, "train_4k",
+                                  param_dtype=dtype)
+    params = init_params(model.specs(), 0, dtype, dev)
+    state = [params, adamw_init(params)]
+    batch = shard_batch(TokenStream(cfg.vocab_size, TRAIN_SEQ,
+                                    TRAIN_BATCH).batch(0), None, dev)
+    losses = []
+
+    def step():
+        state[0], state[1], m = fn(state[0], state[1], batch)
+        losses.append(m["loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, reps=TRAIN_TIMING_REPS, warm=2)
+    peak = torch.cuda.max_memory_allocated()
+    prof = train_profile_step(step)
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        fail(f"train: non-finite loss timing {dtype}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = {"dtype": str(dtype).split(".")[-1], "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "step_ms": ms,
+           "tokens_per_s": tokens / (ms / 1e3), "peak_mem_bytes": peak,
+           "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+           "profile": prof}
+    row.update(train_bounds(n_params, tokens, dtype == torch.bfloat16))
+    log(f"train: step {row['dtype']} b={TRAIN_BATCH} s={TRAIN_SEQ}: "
+        f"{ms:.3f} ms (bound {row['bound_ms']:.3f}: flops "
+        f"{row['flops_ms']:.3f} + AdamW {row['adam_ms']:.3f}), "
+        f"{row['tokens_per_s']:.1f} tok/s, peak {peak / 2 ** 30:.2f} GiB, "
+        f"profiled step {json.dumps(prof)}")
+    del state, params, fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_remat(cut, dev) -> dict:
+    """none / full / dots at the cut depth: the same loss and gradients;
+    the bytes the forward keeps for the backward (what remat trades) and
+    the peak of one loss + backward (above the parameters, the gradients
+    held at the end included)."""
+    import torch
+    from repro_torch.data import TokenStream, shard_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    params = init_params(Model(cut).specs(), 0, torch.float32, dev)
+    batch = shard_batch(TokenStream(cut.vocab_size, TRAIN_SEQ,
+                                    TRAIN_BATCH).batch(0), None, dev)
+    rows = {}
+    for mode in ("none", "full", "dots"):
+        model = Model(cut.replace(remat=mode))
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model.loss(batch, params=tree_unflatten(params, leaves))[0]
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, leaves)
+        gnorm = float(global_norm(grads))
+        rows[mode] = {"loss": float(loss.detach()), "grad_norm": gnorm,
+                      "saved_bytes": saved,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                      - base}
+        del loss, grads, leaves
+    for mode in ("full", "dots"):
+        if rows[mode]["loss"] != rows["none"]["loss"] or abs(
+                rows[mode]["grad_norm"] - rows["none"]["grad_norm"]) > \
+                1e-6 * rows["none"]["grad_norm"]:
+            fail(f"train: remat {mode} changed the loss or gradients: "
+                 f"{json.dumps(rows)}")
+    log(f"train: remat at {cut.num_layers} layers, b={TRAIN_BATCH} "
+        f"s={TRAIN_SEQ}: {json.dumps(rows)}")
+    return rows
+
+
+def train_update_check(label: str, got: dict, want: dict, lr: float
+                       ) -> dict:
+    """Parameters after Adam's first step on two devices: each update
+    within 1e-3 lr, but for at most TRAIN_FLIP_SHARE of a leaf's
+    elements (a gradient near zero), which stay within 2.2 lr; returns
+    the largest share and difference."""
+    from repro_torch.tree import tree_items
+    worst_share, worst = 0.0, 0.0
+    for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        d = (g.detach().double().cpu() - w.double()).abs()
+        share = float((d > 1e-3 * lr).double().mean())
+        worst_share = max(worst_share, share)
+        worst = max(worst, float(d.max()))
+        if share > TRAIN_FLIP_SHARE or float(d.max()) > 2.2 * lr:
+            fail(f"{label}: {'/'.join(path)}: {share:.2e} of the updates "
+                 f"differ, max {float(d.max()):.3e} (lr {lr})")
+    return {"update_diff_share": worst_share, "update_max_diff": worst}
+
+
+def train_card_vs_cpu(cut) -> dict:
+    """One ``Trainer`` step at the cut depth on the card and on the CPU,
+    both resuming a step-0 checkpoint of one CPU initialisation."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_items
+    root = Path(tempfile.mkdtemp(prefix="repro_train_cmp_"))
+    params = init_params(Model(cut).specs(), 0, torch.float32, "cpu")
+    save_checkpoint(str(root / "card"), 0,
+                    {"params": params, "opt": adamw_init(params)})
+    shutil.copytree(root / "card", root / "cpu")
+    outs = {}
+    for name, dev in (("card", TRAIN_DEVICE), ("cpu", "cpu")):
+        tcfg = TrainerConfig(batch_size=TRAIN_CHECK_B, seq_len=TRAIN_CHECK_S,
+                             steps=1, ckpt_every=100, log_every=1,
+                             ckpt_dir=str(root / name), device=dev)
+        outs[name] = Trainer(cut, tcfg).run()
+    card, cpu = outs["card"], outs["cpu"]
+    lc, lp = card["log"][0], cpu["log"][0]
+    loss_rel = abs(lc["loss"] - lp["loss"]) / abs(lp["loss"])
+    gn_rel = abs(lc["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
+    if loss_rel > TRAIN_LOSS_REL or gn_rel > TRAIN_GNORM_REL:
+        fail(f"train: card vs CPU loss {loss_rel:.2e} / grad norm "
+             f"{gn_rel:.2e} apart (bounds {TRAIN_LOSS_REL} / "
+             f"{TRAIN_GNORM_REL})")
+    moment_rel = 0.0
+    for name in ("mu", "nu"):
+        for (path, g), (_, w) in zip(tree_items(card["opt"][name]),
+                                     tree_items(cpu["opt"][name])):
+            scale = float(w.abs().max()) + 1e-30
+            rel = float((g.cpu() - w).abs().max()) / scale
+            moment_rel = max(moment_rel, rel)
+            if rel > TRAIN_MOMENT_REL:
+                fail(f"train: card vs CPU {name} {'/'.join(path)} {rel:.2e}"
+                     f" of its peak apart (bound {TRAIN_MOMENT_REL})")
+    lr = TrainerConfig().lr / TrainerConfig().warmup   # step 1 of warmup
+    row = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+           "moment_rel": moment_rel, "loss": lc["loss"],
+           "grad_norm": lc["grad_norm"]}
+    row.update(train_update_check("train: card vs CPU", card["params"],
+                                  cpu["params"], lr))
+    shutil.rmtree(root)
+    log(f"train: one Trainer step at {cut.num_layers} layers, card vs CPU "
+        f"{json.dumps(row)}")
+    return row
+
+
+def train_restart(cut) -> dict:
+    """``fail_at_step`` then a resumed run, against an uninterrupted run
+    (the cut depth, on the card); and a bf16 run's checkpoint restored."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.models import Model
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+    from repro_torch.tree import tree_items
+    root = Path(tempfile.mkdtemp(prefix="repro_train_restart_"))
+
+    def cfg(name, **kw):
+        return TrainerConfig(batch_size=TRAIN_CHECK_B, seq_len=TRAIN_CHECK_S,
+                             steps=4, ckpt_every=2, log_every=1,
+                             ckpt_dir=str(root / name), device=TRAIN_DEVICE,
+                             **kw)
+
+    failing = Trainer(cut, cfg("a", fail_at_step=3))
+    try:
+        failing.run()
+        fail("train: fail_at_step did not raise")
+    except SimulatedFailure:
+        failing.checkpointer.wait()        # the step-2 save in flight
+    survived = latest_step(str(root / "a"))
+    resumed = Trainer(cut, cfg("a")).run()
+    clean = Trainer(cut, cfg("b")).run()
+    exact = tree_equal(resumed["params"], clean["params"])
+    worst = 0.0
+    for (path, g), (_, w) in zip(tree_items(resumed["params"]),
+                                 tree_items(clean["params"])):
+        worst = max(worst, float((g - w).abs().max())
+                    / (float(w.abs().max()) + 1e-30))
+    if resumed["log"][0]["step"] != survived or worst > 1e-4:
+        fail(f"train: the resumed run (from step {survived}) is "
+             f"{worst:.2e} of a leaf's peak off the uninterrupted one")
+    bf16 = Trainer(cut, cfg("bf16", param_dtype=torch.bfloat16)).run()
+    tree, step, _ = restore_checkpoint(
+        str(root / "bf16"), train_like(Model(cut), torch.bfloat16),
+        device=TRAIN_DEVICE)
+    manifest = json.loads((root / "bf16" / "step_00000004" /
+                           "manifest.json").read_text())
+    dtypes = {v["dtype"] for k, v in manifest["keys"].items()
+              if k.startswith("params::")}
+    if step != 4 or dtypes != {"bfloat16"} or not tree_equal(
+            tree, {"params": bf16["params"], "opt": bf16["opt"]}):
+        fail(f"train: the bf16 checkpoint (dtypes {dtypes}) did not "
+             f"restore equal")
+    shutil.rmtree(root)
+    row = {"survived_step": survived, "exact": exact, "max_rel": worst,
+           "bf16_restored": True, "bf16_last_loss": bf16["last_loss"]}
+    log(f"train: restart at {cut.num_layers} layers {json.dumps(row)}")
+    return row
+
+
+def train_phase() -> dict:
+    """``python -m repro_torch.launch.train`` on the card: tinyllama-1.1b
+    at full width through the CLI with its checkpoint; the full-width
+    step timed in float32 and bf16; remat modes, card vs CPU, restart
+    and a bf16 restore at the cut depth (``lm_cut``); no K1-K5 launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import count_params
+
+    dev = torch.device(TRAIN_DEVICE)
+    t_phase = time.perf_counter()
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    ST.reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    n_params = count_params(Model(cfg).specs())
+    cli = train_cli_run(cfg, n_params)
+    timing = [train_timing(cfg, dt, dev)
+              for dt in (torch.float32, torch.bfloat16)]
+    cut = lm_cut(cfg)
+    remat = train_remat(cut, dev)
+    card_vs_cpu = train_card_vs_cpu(cut)
+    restart = train_restart(cut)
+    launches = dprt_kernel_launches()
+    if launches:
+        fail(f"the training path launched {launches} of K1-K5")
+    log("train: K1-K5 launches 0")
+    return {"arch": LM_ARCH, "params": n_params, "cli": cli,
+            "timing": timing, "cut_layers": cut.num_layers,
+            "remat": remat, "card_vs_cpu": card_vs_cpu,
+            "restart": restart, "dprt_launches": launches,
+            "card": nvidia_smi_line(),
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -3522,9 +3961,11 @@ def main() -> int:
     pipeline_profile_phase(mesh=True)
     close_world()
     lm = lm_phase()
+    trained = train_phase()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,27 @@
-"""Keyed binary blobs and cross-process locks: the port's blob store.
+"""Fault-tolerant checkpoints of tensor trees, keyed binary blobs and
+cross-process locks: the port of :mod:`repro.checkpoint.store`, in the
+reference's on-disk formats, so what either package writes the other
+reads.
 
-The blob half of :mod:`repro.checkpoint.store` -- ``save_blob``,
-``load_blob``, ``list_blobs``, ``delete_blob``, ``blob_lock`` and
-``LockTimeout`` -- copied, with the same on-disk format, so a blob
-written by either package loads in the other.  The persistent AOT cache
-(:class:`repro_torch.radon.PersistentAOTCache`) rides on it.  The
-pytree-checkpoint half (``save_checkpoint``, ``AsyncCheckpointer``) is
-not ported yet.
+Tree checkpoints:  ``<dir>/step_<n:08d>/ {manifest.json, <leaf>.npy ...}``,
+written into ``step_<n>.tmp`` and published by one rename, so a crash
+mid-write never corrupts the newest checkpoint.  A leaf's key is its
+tree path joined by ``"::"``, its file name the key with every character
+outside ``[A-Za-z0-9_.-]`` turned into ``_``; the manifest holds
+``step``, ``keys`` (each leaf's ``file``, ``shape`` and ``dtype``),
+``extra`` and ``time``.  Leaves are stored whole on the host, so a
+checkpoint restores onto any device or mesh.
+
+A bfloat16 leaf is written as the reference writes one (NumPy's ``.npy``
+of an ``ml_dtypes`` bfloat16 array: descr ``'<V2'``, the raw 2-byte
+words, manifest dtype ``"bfloat16"``) and read back from the manifest's
+dtype through a 16-bit integer view, with no ``ml_dtypes``.  (The
+reference cannot read such a leaf back: JAX refuses the ``'|V2'`` array
+NumPy loads.)
+
+The blob half (``save_blob`` ... ``LockTimeout``) is a copy of the
+reference's; the persistent AOT cache
+(:class:`repro_torch.radon.PersistentAOTCache`) rides on it.
 """
 from __future__ import annotations
 
@@ -14,11 +29,200 @@ import contextlib
 import json
 import os
 import re
+import shutil
+import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
-__all__ = ["save_blob", "load_blob", "list_blobs", "delete_blob",
+import numpy as np
+import torch
+
+from ..tree import tree_items, tree_map, tree_unflatten
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "AsyncCheckpointer", "gc_checkpoints",
+           "save_blob", "load_blob", "list_blobs", "delete_blob",
            "blob_lock", "LockTimeout"]
+
+_SEP = "::"
+_BF16_DESCR = "<V2"        # np.save's descr of an ml_dtypes bfloat16 array
+
+
+def _key(path) -> str:
+    return _SEP.join(str(p) for p in path)
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    return {_key(path): leaf for path, leaf in tree_items(tree)}
+
+
+def _fname(key: str) -> str:
+    return re.sub(r"[^A-Za-z0-9_.-]", "_", key) + ".npy"
+
+
+def _to_host(leaf, copy: bool = False):
+    """A leaf as a CPU tensor or a numpy array; ``copy`` makes sure it
+    shares no storage with ``leaf`` (a CPU tensor's ``.cpu()`` is
+    itself)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=copy)
+    return np.array(leaf, copy=copy) if copy else np.asarray(leaf)
+
+
+def _write_leaf(path: str, leaf) -> tuple:
+    """Write one host leaf as ``.npy``; returns ``(shape, dtype name)``."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            words = leaf.contiguous().view(torch.int16).numpy()
+            return _write_bf16(path, words), "bfloat16"
+        leaf = leaf.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":          # an ml_dtypes array
+        return _write_bf16(path, arr.view(np.int16)), "bfloat16"
+    np.save(path, arr)
+    return list(arr.shape), str(arr.dtype)
+
+
+def _write_bf16(path: str, words: np.ndarray) -> list:
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": tuple(words.shape)})
+        f.write(np.ascontiguousarray(words).tobytes())
+    return list(words.shape)
+
+
+def _read_leaf(path: str, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if str(arr.dtype) != dtype:
+        raise ValueError(f"{path}: dtype {arr.dtype}, the manifest says "
+                         f"{dtype}")
+    return torch.from_numpy(arr)
+
+
+def save_checkpoint(directory: str, step: int, tree,
+                    extra: Optional[Dict] = None) -> str:
+    """Blocking atomic save of a tree of tensors (or arrays) on any
+    device.  Returns the final checkpoint path."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "keys": {}, "extra": extra or {},
+                "time": time.time()}
+    for key, leaf in _flatten(tree).items():
+        fname = _fname(key)
+        shape, dtype = _write_leaf(os.path.join(tmp, fname), _to_host(leaf))
+        manifest["keys"][key] = {"file": fname, "shape": shape,
+                                 "dtype": dtype}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)          # atomic publish
+    return final
+
+
+def _steps(directory: str) -> list:
+    return sorted(int(m.group(1)) for d in os.listdir(directory)
+                  if (m := re.fullmatch(r"step_(\d+)", d)))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(directory: str, like_tree, step: Optional[int] = None,
+                       device=None):
+    """Restore into the structure of ``like_tree`` (whose leaves may be
+    meta tensors: only its keys and shapes are read).
+
+    Each leaf comes back as a tensor of the dtype on disk, on ``device``
+    (default: the CPU).  Returns ``(tree, step, extra)``, or ``(None,
+    None, None)`` when there is no checkpoint.
+    """
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        return None, None, None
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    flat_like = _flatten(like_tree)
+    missing = set(flat_like) - set(manifest["keys"])
+    if missing:
+        raise ValueError(f"checkpoint at {path} missing keys: "
+                         f"{sorted(missing)[:5]}")
+    leaves = []
+    for key, like in flat_like.items():
+        info = manifest["keys"][key]
+        shape = getattr(like, "shape", None)
+        if shape is not None and tuple(shape) != tuple(info["shape"]):
+            raise ValueError(f"checkpoint at {path}: {key} has shape "
+                             f"{info['shape']}, the tree needs "
+                             f"{tuple(shape)}")
+        t = _read_leaf(os.path.join(path, info["file"]), info["dtype"])
+        leaves.append(t.to(device) if device is not None else t)
+    return (tree_unflatten(like_tree, leaves), manifest["step"],
+            manifest.get("extra", {}))
+
+
+def gc_checkpoints(directory: str, keep: int = 3) -> None:
+    if not os.path.isdir(directory):
+        return
+    for s in _steps(directory)[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+class AsyncCheckpointer:
+    """Overlaps checkpoint writes with training (one write in flight).
+
+    ``save`` copies the tree to the host on the caller's thread, so the
+    caller may update its tensors in place at once, and writes it on a
+    background thread.  ``last_save`` holds the seconds of the newest
+    save's host copy (``copy_s``) and write (``write_s``, once done).
+    """
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_save: Dict[str, float] = {}
+
+    def save(self, step: int, tree, extra=None) -> None:
+        self.wait()
+        t0 = time.perf_counter()
+        host_tree = tree_map(lambda x: _to_host(x, copy=True), tree)
+        self.last_save = {"copy_s": time.perf_counter() - t0}
+
+        def work():
+            t1 = time.perf_counter()
+            try:
+                save_checkpoint(self.directory, step, host_tree, extra)
+                gc_checkpoints(self.directory, self.keep)
+            except BaseException as e:  # surfaced on next wait()
+                self._error = e
+            self.last_save["write_s"] = time.perf_counter() - t1
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 # ---------------------------------------------------------------------------

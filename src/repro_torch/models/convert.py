@@ -16,7 +16,8 @@ import torch
 
 from .lm import Model, check_tree
 
-__all__ = ["params_from_reference", "params_to_numpy"]
+__all__ = ["params_from_reference", "params_to_numpy",
+           "opt_state_from_reference"]
 
 
 def _floating(path: str, arr: np.ndarray) -> np.ndarray:
@@ -67,3 +68,32 @@ def params_to_numpy(model: Model) -> Dict[str, Any]:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return one(model.param_tree())
+
+
+def opt_state_from_reference(model: Model, state, device="cuda"):
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy
+    leaves: float32 moments of the model's parameter tree, an int32
+    step) as the port's :func:`repro_torch.optim.adamw_init` state on
+    ``device``.  Raises when a moment tree does not match the model's
+    specs or a leaf is not float32, or the step is not an int32 scalar."""
+    specs = model.specs()
+
+    def moments(tree, path: str):
+        if isinstance(tree, dict):
+            return {k: moments(v, f"{path}.{k}") for k, v in tree.items()}
+        arr = np.asarray(tree)
+        if arr.dtype != np.float32:
+            raise TypeError(f"{path}: dtype {arr.dtype}, moments are "
+                            f"float32")
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    out = {}
+    for name in ("mu", "nu"):
+        check_tree(state[name], specs)
+        out[name] = moments(state[name], name)
+    step = np.asarray(state["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise TypeError(f"step: {step.dtype} {step.shape}, the step is an "
+                        f"int32 scalar")
+    out["step"] = torch.from_numpy(np.array(step)).to(device)
+    return out

@@ -65,8 +65,11 @@ def dense_spec(d_in: int, d_out: int, lin: str = "embed",
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``w`` in the reference's ``(d_in, d_out)`` layout."""
-    return torch.matmul(x, w)
+    """``x @ w`` with ``w`` in the reference's ``(d_in, d_out)`` layout,
+    in the promoted dtype of the two, as ``jnp.einsum`` computes it (a
+    float32 input against bfloat16 weights gives a float32 product)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

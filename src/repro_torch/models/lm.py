@@ -4,36 +4,85 @@ The port of :mod:`repro.models.lm`.  Layers whose kinds repeat
 periodically are stacked along a leading axis, as in the reference; the
 reference runs them under ``lax.scan``, the port by a Python loop over
 that axis.  Irregular layers (e.g. DeepSeek-V2's first dense layer,
-pattern remainders) run one by one.  ``remat`` is accepted and ignored
-(it matters only to training).
+pattern remainders) run one by one.
 
 :class:`Model` is an ``nn.Module`` whose parameters sit under the
 reference's tree paths (``embed.embedding``, ``body.0.attn.wq``, ...).
 It is built from its configuration alone; :meth:`Model.load_params`
 installs a parameter tree (from :func:`~repro_torch.parallel.sharding.
 init_params`, or the reference's through
-:func:`~repro_torch.models.convert.params_from_reference`).
+:func:`~repro_torch.models.convert.params_from_reference`), as
+parameters that do not require grad.
 
 Three entry points:
   * ``forward``     -- teacher-forced logits over a full batch,
   * ``prefill``     -- forward + KV/state cache construction,
   * ``decode_step`` -- one-token step against the cache, which it
     updates in place.
+
+Each takes ``params=``, a parameter tree to run on in place of the
+installed one.  Training uses it: ``loss(batch, params=tree)`` is a
+function of the tree, as the reference's ``loss(params, batch)``, and
+the trainer differentiates it with respect to leaves that require grad
+(:func:`repro_torch.optim.value_and_grad`) -- the port turns on
+``requires_grad`` for the trainer's own parameters rather than going
+through ``torch.func.functional_call``, and the installed parameters
+stay frozen for serving.  ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()``; ``forward`` and ``loss`` carry autograd.
+
+``cfg.remat`` is the reference's rematerialisation of each stacked
+group and encoder layer when gradients are taken
+(``torch.utils.checkpoint``, non-reentrant): ``"full"`` saves nothing
+and recomputes the group in the backward pass, ``"dots"`` saves the
+outputs of the unbatched matrix products (``aten.mm``, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, and
+``"none"`` keeps every activation.  The values do not depend on it;
+only the memory does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..parallel.sharding import ParamSpec, shard_act, stack_specs
+from ..tree import tree_map
 from .blocks import apply_block, block_cache_shapes, block_specs
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, embed_specs, embed_tokens, rmsnorm,
                      rmsnorm_spec, unembed)
 
 __all__ = ["Model", "check_tree"]
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep unbatched matrix products' outputs."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` rematerialised in the backward pass by ``mode`` (the
+    reference's ``_remat``: any mode but none and dots is full); the
+    plain call where no gradient is taken."""
+    if mode == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if mode == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _save_mm))
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def _is_shape(v) -> bool:
@@ -45,13 +94,6 @@ def _map_shapes(fn, tree, name: str = ""):
     if _is_shape(tree):
         return fn(name, tree)
     return {k: _map_shapes(fn, v, k) for k, v in tree.items()}
-
-
-def _map(fn, *trees):
-    """``fn`` over the leaves (tensors) of trees of one structure."""
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def _unstack(tree, n: int):
@@ -70,7 +112,7 @@ def _write_back(cache, new):
             c.copy_(n)
         return c
 
-    return _map(put, cache, new)
+    return tree_map(put, cache, new)
 
 
 def check_tree(tree, specs, path: str = "") -> None:
@@ -193,11 +235,16 @@ class Model(nn.Module):
         cfg = self.cfg
         positions = torch.arange(audio_embed.shape[1], dtype=torch.int32,
                                  device=audio_embed.device)
+
+        def layer(pg, x):
+            return apply_block(pg, cfg, x, "attn", "dense",
+                               positions=positions, causal=False,
+                               use_rope=False)[0]
+
+        layer = _remat(layer, cfg.remat)
         x = audio_embed
         for pg in _unstack(params["encoder"]["body"], cfg.encoder_layers):
-            x, _, _ = apply_block(pg, cfg, x, "attn", "dense",
-                                  positions=positions, causal=False,
-                                  use_rope=False)
+            x = layer(pg, x)
         return rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
     # ------------------------------------------------------------------
@@ -246,20 +293,27 @@ class Model(nn.Module):
             layers = _unstack(params["body"], self.n_groups)
             caches = (_unstack(cache["body"], self.n_groups) if decode
                       else [None] * self.n_groups)
-            group_caches = []
-            for pg, cg in zip(layers, caches):
+
+            def group(pg, cg, x, aux):
                 ncg = {}
                 for p, kinds in enumerate(self.pattern_kinds):
                     ci = cg[str(p)] if cg is not None else None
                     x, nc, a = run_one(pg[str(p)], x, kinds, ci)
                     aux = aux + a
                     ncg[str(p)] = _write_back(ci, nc) if decode else nc
+                return x, aux, ncg
+
+            if not (decode or collect_cache):     # training / eval
+                group = _remat(group, self.cfg.remat)
+            group_caches = []
+            for pg, cg in zip(layers, caches):
+                x, aux, ncg = group(pg, cg, x, aux)
                 group_caches.append(ncg)
             if decode:            # written into the stacked leaves' views
                 new_cache["body"] = cache["body"]
             elif collect_cache:
-                new_cache["body"] = _map(lambda *ls: torch.stack(ls),
-                                         *group_caches)
+                new_cache["body"] = tree_map(lambda *ls: torch.stack(ls),
+                                             *group_caches)
 
         if self.tail_ids:
             x, aux = run_ids("tail", self.tail_ids, x, aux)
@@ -269,10 +323,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
-    def forward(self, batch):
+    def _tree(self, params):
+        return self.param_tree() if params is None else params
+
+    def forward(self, batch, params=None):
         """-> (logits (B,S,V), aux).  Training / teacher-forced eval."""
         cfg = self.cfg
-        params = self.param_tree()
+        params = self._tree(params)
         s = batch["tokens"].shape[1]
         dev = batch["tokens"].device
         positions = torch.arange(s, dtype=torch.int32, device=dev)
@@ -283,17 +340,18 @@ class Model(nn.Module):
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=dev) + aux
 
-    def loss(self, batch, aux_weight: float = 0.01):
-        logits, aux = self.forward(batch)
+    def loss(self, batch, aux_weight: float = 0.01, params=None):
+        """-> (ce + aux_weight * aux, {"ce", "aux"})."""
+        logits, aux = self.forward(batch, params)
         ce = cross_entropy_loss(logits, batch["labels"],
                                 batch.get("loss_mask"))
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     @torch.inference_mode()
-    def prefill(self, batch, max_len: Optional[int] = None):
+    def prefill(self, batch, max_len: Optional[int] = None, params=None):
         """-> (last-position logits (B,1,V), cache sized for ``max_len``)."""
         cfg = self.cfg
-        params = self.param_tree()
+        params = self._tree(params)
         b, s = batch["tokens"].shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=batch["tokens"].device)
@@ -303,18 +361,20 @@ class Model(nn.Module):
         x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x)[..., :cfg.vocab_size]
         if max_len is not None and max_len > s:
+            leaf = params["final_norm"]
             full = self.init_cache(b, max_len,
                                    enc_len=(enc_out.shape[1]
-                                            if enc_out is not None else 0))
+                                            if enc_out is not None else 0),
+                                   dtype=leaf.dtype, device=leaf.device)
             cache = _merge_cache(full, cache)
         return logits, cache
 
     @torch.inference_mode()
-    def decode_step(self, cache, tokens, pos: int):
+    def decode_step(self, cache, tokens, pos: int, params=None):
         """tokens (B,1), pos an int -> (logits (B,1,V), cache).  The cache
         is updated in place (the reference donates it) and returned."""
         cfg = self.cfg
-        params = self.param_tree()
+        params = self._tree(params)
         pos = int(pos)
         positions = torch.arange(pos, pos + 1, dtype=torch.int32,
                                  device=tokens.device)
@@ -380,4 +440,4 @@ def _merge_cache(full, prefill):
         f[idx] = p[idx].to(f.dtype)
         return f
 
-    return _map(merge, full, prefill)
+    return tree_map(merge, full, prefill)

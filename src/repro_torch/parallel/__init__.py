@@ -1,7 +1,14 @@
-"""Parameter specs of the LM substrate (the serving half of the
-reference's ``parallel`` package)."""
-from .sharding import (ParamSpec, LOGICAL_RULES, init_params, stack_specs,
-                       shard_act, count_params, map_specs)
+"""Logical-axis parameter specs and their mesh placements (the port of
+the reference's ``parallel`` package)."""
+from .sharding import (ParamSpec, LOGICAL_RULES, AbstractMesh,
+                       mesh_axis_sizes, logical_to_pspec, param_pspecs,
+                       prune_pspec, param_shardings, init_params,
+                       abstract_params, stack_specs, shard_act,
+                       activate_mesh, active_mesh, data_parallel,
+                       count_params, map_specs)
 
-__all__ = ["ParamSpec", "LOGICAL_RULES", "init_params", "stack_specs",
-           "shard_act", "count_params", "map_specs"]
+__all__ = ["ParamSpec", "LOGICAL_RULES", "AbstractMesh", "mesh_axis_sizes",
+           "logical_to_pspec", "param_pspecs", "prune_pspec",
+           "param_shardings", "init_params", "abstract_params",
+           "stack_specs", "shard_act", "activate_mesh", "active_mesh",
+           "data_parallel", "count_params", "map_specs"]

@@ -62,7 +62,11 @@ def test_port_has_the_slice_modules():
                 "models/attention.py", "models/rglru.py", "models/ssm.py",
                 "models/moe.py", "models/blocks.py", "models/lm.py",
                 "models/convert.py", "configs/registry.py",
-                "parallel/sharding.py"):
+                "parallel/sharding.py", "tree.py",
+                "optim/__init__.py", "optim/adamw.py", "optim/compress.py",
+                "runtime/__init__.py", "runtime/trainer.py",
+                "data/pipeline.py", "launch/train.py", "launch/steps.py",
+                "launch/shapes.py"):
         assert mod in rel, mod
     for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))

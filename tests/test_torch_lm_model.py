@@ -249,3 +249,44 @@ def test_ring_cache_shorter_than_the_window():
     jb = {k: jnp.asarray(v) for k, v in _inputs(cfg, s).items()}
     with pytest.raises(TypeError, match="dynamic_update_slice"):
         rm.prefill(rp, jb, max_len=max_len)
+
+
+def test_bf16_params_with_float32_audio_embed():
+    """bfloat16 weights and a float32 ``audio_embed`` (whisper smoke):
+    jnp promotes, so the reference's encoder runs in float32 and its
+    logits come out bfloat16; the port matches each stage's dtype, and
+    its values sit within 2e-2 of the reference's peak (bfloat16 noise:
+    one bfloat16 step is 2^-8 of a value)."""
+    arch = "whisper_large_v3"
+    rcfg = r_get_smoke_config(arch)
+    rm = RModel(rcfg)
+    rp = r_init_params(rm.specs(), jax.random.key(1), jnp.bfloat16)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, rcfg.vocab_size, (2, 8)).astype(np.int32)
+    audio = rng.normal(size=(2, rcfg.encoder_seq, rcfg.d_model)).astype(
+        np.float32)
+    jb = {"tokens": jnp.asarray(tokens), "audio_embed": jnp.asarray(audio)}
+
+    def ref_all(p, b):
+        return (rm.forward(p, b)[0], rm._encode(p, b["audio_embed"]),
+                rm.prefill(p, b), rm.prefill(p, b, max_len=10))
+
+    logits, enc, (last, cache), (last10, cache10) = jax.jit(ref_all)(rp, jb)
+    model = params_from_reference(Model(get_smoke_config(arch)),
+                                  jax.tree.map(np.asarray, rp), device="cpu")
+    tb = {"tokens": torch.from_numpy(tokens),
+          "audio_embed": torch.from_numpy(audio)}
+    with torch.inference_mode():
+        t_logits, _ = model.forward(tb)
+        t_enc = model._encode(model.param_tree(), tb["audio_embed"])
+        t_last, t_cache = model.prefill(tb)
+        t_last10, t_cache10 = model.prefill(tb, max_len=10)
+    for got, want, rel in ((t_logits, logits, 2e-2), (t_enc, enc, 1e-5),
+                           (t_last, last, 2e-2), (t_last10, last10, 2e-2)):
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        assert tuple(got.shape) == want.shape
+        assert _rel(got.float().numpy(), np.asarray(want, np.float32)) < rel
+    assert str(t_enc.dtype) == "torch.float32"
+    for got, want in ((t_cache, cache), (t_cache10, cache10)):
+        got_dt = jax.tree.map(lambda t: str(t.dtype).split(".")[-1], got)
+        assert got_dt == jax.tree.map(lambda a: str(a.dtype), want)
