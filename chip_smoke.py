@@ -6,10 +6,11 @@
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` with nvcc (one nvcc per library, all started together), holds
 every kernel against its plain PyTorch version on the card, and drives
-eight main paths -- five of the ``radon_251`` configuration (256 phantom
-images of 251 x 251, int32; the serving tier at N = 251), the giant-N
-path and the LM substrate's serving and training paths -- each with the
-launch counts set to 0 just before it and read just after:
+nine main paths -- six of the ``radon_251`` configuration (256 phantom
+images of 251 x 251, int32; the serving tier at N = 251, also on a
+mesh), the giant-N path and the LM substrate's serving and training
+paths -- each with the launch counts set to 0 just before it and read
+just after, then prints the cost models beside what it measured:
 
 1. the exact forward and inverse DPRT through ``repro_torch.radon.DPRT``
    and ``python -m repro_torch.launch.serve --mode radon`` (kernel K1);
@@ -76,7 +77,27 @@ launch counts set to 0 just before it and read just after:
    (``lm_cut``): remat none / full / dots (the same loss and gradients,
    the bytes each keeps), one ``Trainer`` step on the card against the
    CPU, ``fail_at_step`` and a resumed run against an uninterrupted one,
-   and a bf16 run's checkpoint restored.
+   and a bf16 run's checkpoint restored;
+9. the serving tier on a (1, 1) ("data", "model") mesh over NCCL
+   (kernels K1 and K3): ``python -m repro_torch.launch.serve --mode
+   service --mesh-shape 1,1``, then ``DPRTService(mesh=...)`` on each
+   datapath at N = 251, max batch 8, 64 requests, sequentially and
+   coalesced, equal to the unsharded service's responses from the same
+   run and to the plain versions, one K1 per transform batch (the mesh
+   inverse: K1's core), K1 + K3 per conv batch, K1 core per solve batch
+   and K1 forward + K3 ``mul`` per CG iteration, no K2, zero builds
+   after warmup on every rank, images/s and p50/p99 beside the
+   unsharded service's; a restart of the conv and roundtrip services
+   from an aot_dir on the mesh plan in two processes (the second
+   restored with an empty build directory and nvcc that raises).
+
+The cost phase: ``repro_torch.launch.hlo_cost.analyze_step`` over
+tinyllama-1.1b at full width on meta structs (the float32 train step at
+8 x 128 with remat full, prefill and a decode step at batch 8) with
+``launch.roofline.roofline_terms`` at the float32 peak, beside the hand
+bounds and the step ms the LM and training phases measured; and
+``core.pareto.h100_strip_cost`` for K1 at ``radon_251`` at each
+directions-per-block value the timing phase sweeps, beside its ms.
 
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
@@ -89,9 +110,11 @@ per image), the streamed kernel by directions per block; and profiles
 one ``Conv2D`` call of the pipeline path and one of the mesh path.
 
 Output: progress lines, a ``{"serving": {...}}`` JSON line of the
-serving phase's numbers, an ``{"lm": {...}}`` line of the LM phase's, a
-``{"train": {...}}`` line of the training phase's, then a
-``{"kernels": [...]}`` JSON line, the
+serving phase's numbers (the mesh service's among them), an ``{"lm":
+{...}}`` line of the LM phase's, a ``{"train": {...}}`` line of the
+training phase's, a ``{"cost": {...}}`` line of the cost phase's, then a
+``{"kernels": [...]}`` JSON line (the int32 K1 and K3 rows also with
+their ``mesh_service_launches``), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line; so does a machine without a CUDA card, or a directory that
@@ -110,12 +133,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+try:        # the port's H100 peaks; main() fails without torch or sources
+    from repro_torch.launch.roofline import HW
+except ImportError:
+    HW = {}
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and int32 adds/s --
-#: 132 SMs x 64 INT32 lanes x 1.98 GHz, half the 33.5e12 lane-ops/s
-#: behind the 67 TFLOP/s float32 figure (which counts an FMA as two).
-HBM_BYTES_PER_S = 3.35e12
-INT32_ADDS_PER_S = 16.75e12
+#: H100 SXM peaks (NVIDIA data sheet, ``repro_torch.launch.roofline.HW``):
+#: HBM3 bytes/s; int32 adds/s -- 132 SMs x 64 INT32 lanes x 1.98 GHz, half
+#: the lane-ops/s behind the 67 TFLOP/s float32 figure (which counts an
+#: FMA as two); float32 adds/s (128 lanes per SM); the float32 peak
+#: outside the tensor cores and the bf16 dense tensor-core peak
+HBM_BYTES_PER_S = HW.get("hbm_bw")
+INT32_ADDS_PER_S = HW.get("int32_ops")
+FP32_ADDS_PER_S = HW.get("sms", 0) * 128 * HW.get("sm_clock_hz", 0)
+F32_FLOPS_PER_S = HW.get("f32_flops")
+BF16_FLOPS_PER_S = HW.get("peak_flops")
 
 SERVE_ITERS = 5
 CONV_ITERS = 3
@@ -2114,8 +2147,6 @@ def tail_timing_phase(launches: dict, worst: dict) -> list:
 # ---------------------------------------------------------------------------
 # slice 8: reconstruction (radon.solve through float32 K1 and K2)
 # ---------------------------------------------------------------------------
-#: float32 adds per second: 132 SMs x 128 FP32 lanes x 1.98 GHz
-FP32_ADDS_PER_S = 132 * 128 * 1.98e9
 #: directions a detector loses (examples/reconstruction.py --drop 4),
 #: drawn from numpy.random.default_rng(0)
 SOLVE_DROP = 4
@@ -2709,12 +2740,12 @@ def serve_problem(n: int, dev):
     }
 
 
-def serve_service(datapath: str, prob: dict, dev, aot_dir=None):
+def serve_service(datapath: str, prob: dict, dev, aot_dir=None, mesh=None):
     """One ``DPRTService`` of the serving phase (N from ``prob``, int32,
-    max_batch 8: warm sizes 1, 2, 4, 8)."""
+    max_batch 8: warm sizes 1, 2, 4, 8), on ``mesh`` when given."""
     import torch
     from repro_torch.launch.service import DPRTService
-    kw = {}
+    kw = {} if mesh is None else {"mesh": mesh}
     if datapath == "conv":
         kw["conv_kernel"] = prob["kernel"]
     if datapath == "solve":
@@ -2849,24 +2880,31 @@ def restart_child(stage: str, aot_dir: str) -> int:
     --serve-restart-child STAGE DIR``): A cold (an empty build directory:
     nvcc builds the libraries), B with an empty build directory and nvcc
     replaced by a function that raises, C after
-    ``faults.corrupt_blobs(DIR, seed=0)``.  Builds the RESTART_DATAPATHS
-    services over ``DIR``, warms them, serves SERVE_MAX_BATCH requests of
-    each against the plain backend and prints one JSON line."""
+    ``faults.corrupt_blobs(DIR, seed=0)``; MA and MB are A (the libraries
+    already built) and B on a (1, 1) mesh over NCCL.  Builds the
+    RESTART_DATAPATHS services over ``DIR``, warms them, serves
+    SERVE_MAX_BATCH requests of each against the plain backend and prints
+    one JSON line."""
     import tempfile
     import torch
     from repro_torch import radon
     from repro_torch.kernels import _build
     from repro_torch.launch import faults
 
-    if stage in ("A", "B"):        # no library built yet: a true cold
+    if stage in ("A", "B", "MB"):  # no library built yet: a true cold
         _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="restart_build_"))
-    if stage == "B":
+    if stage in ("B", "MB"):
         def no_nvcc():
             raise RuntimeError("nvcc must not run in a restart from blobs")
         _build._nvcc = no_nvcc
     if stage == "C":
         faults.corrupt_blobs(aot_dir, seed=0)
     dev = torch.device(SERVE_DEVICE)
+    mesh = None
+    if stage.startswith("M"):
+        from repro_torch.launch.mesh import init_world, make_local_mesh
+        init_world(SERVE_DEVICE)
+        mesh = make_local_mesh(1, 1)
     n = SERVE_N
     shape = (SERVE_MAX_BATCH, n, n)
     from repro_torch.data.synthetic import radon_images
@@ -2880,7 +2918,7 @@ def restart_child(stage: str, aot_dir: str) -> int:
     builds = radon.trace_count(kind="kernel")
     stats, warm_s = {}, 0.0
     for dp in RESTART_DATAPATHS:
-        svc = serve_service(dp, prob, dev, aot_dir=aot_dir)
+        svc = serve_service(dp, prob, dev, aot_dir=aot_dir, mesh=mesh)
         t0 = time.perf_counter()
         info = svc.warmup()
         warm_s += time.perf_counter() - t0
@@ -2891,6 +2929,11 @@ def restart_child(stage: str, aot_dir: str) -> int:
             + info["executables"]
         got = svc.run_requests(list(imgs_np))
         check_responses(f"restart {stage} {dp}", dp, got, list(plain[dp]))
+        if svc.close():
+            fail(f"restart {stage} {dp}: builds after warmup on the mesh")
+    if mesh is not None:
+        from repro_torch.launch.mesh import close_world
+        close_world()
     print(json.dumps({"stage": stage, "warmup_s": warm_s,
                       "nvcc_builds": radon.trace_count(kind="kernel")
                       - builds,
@@ -3134,6 +3177,222 @@ def pool_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 12: the serving tier on a mesh (K1 and K3 on the mesh service)
+# ---------------------------------------------------------------------------
+def mesh_serve_expected_launches(datapath: str, batches: int,
+                                 iters: int) -> dict:
+    """The launches ``batches`` executions of one datapath make on a
+    mesh: one K1 forward per forward batch, one K1 core per inverse batch
+    (the mesh inverse's skew-sum; its epilogue is torch), K1 forward and
+    K3 conv per conv batch, and per solve batch one K1 core (A^T b) with
+    one K1 forward and one K3 ``mul`` per CG iteration; never K2."""
+    k1 = {"core": 0, "forward": 0, "inverse": 0}
+    k3 = {"none": 0, "mul": 0, "conv": 0}
+    if datapath in ("forward", "roundtrip", "conv"):
+        k1["forward"] = batches
+    if datapath in ("inverse", "roundtrip", "solve"):
+        k1["core"] = batches
+    if datapath == "conv":
+        k3["conv"] = batches
+    if datapath == "solve":
+        k1["forward"] += iters
+        k3["mul"] = iters
+    return {"k1": k1, "k2": {"none": 0, "mul": 0, "conv": 0}, "k3": k3}
+
+
+def mark_mesh_service_launches(kernels: list, mesh_service: dict) -> None:
+    """Give the int32 K1 and K3 rows of the ``kernels`` line the launches
+    of the mesh service's coalesced runs (all datapaths together) as
+    ``mesh_service_launches``."""
+    total = {}
+    for dp in SERVE_DATAPATHS:
+        for k, counts in mesh_service[dp]["launches"].items():
+            for mode, n in counts.items():
+                total[(k, mode)] = total.get((k, mode), 0) + n
+    for row in kernels:
+        m = re.fullmatch(r"(sfdprt|pipeline_tail)_kernel\[(\w+)\]",
+                         row["name"])
+        if m:
+            k = "k1" if m.group(1) == "sfdprt" else "k3"
+            row["mesh_service_launches"] = total.get((k, m.group(2)), 0)
+
+
+def mesh_turn_cost(prob: dict, dev, mesh) -> dict:
+    """Host ms of one forward batch of SERVE_MAX_BATCH through
+    ``execute()``, unsharded and on the mesh (median of 20), and of the
+    mesh service's turn alone (a header and the stack broadcast, the
+    outcome's all_reduce read on the host; median of 50)."""
+    import numpy as np
+    import torch
+    stack = np.stack(prob["requests"]["forward"][:SERVE_MAX_BATCH])
+    out = {}
+    for label, m in (("unsharded_ms", None), ("mesh_ms", mesh)):
+        svc = serve_service("forward", prob, dev, mesh=m)
+        svc.warmup()
+        walls = []
+        for i in range(25):
+            t0 = time.perf_counter()
+            svc.execute(stack)
+            if i >= 5:
+                walls.append(1e3 * (time.perf_counter() - t0))
+        out[label] = statistics.median(walls)
+        if m is not None:
+            link = svc._link
+            x = torch.from_numpy(stack).to(dev)
+            walls = []
+            for i in range(55):
+                t0 = time.perf_counter()
+                link.send(1, SERVE_MAX_BATCH)
+                link.stack(x)
+                link.agree(True)
+                if i >= 5:
+                    walls.append(1e3 * (time.perf_counter() - t0))
+            out["turn_ms"] = statistics.median(walls)
+        svc.close()
+    log(f"mesh service: one forward batch of {SERVE_MAX_BATCH} through "
+        f"execute() {out['mesh_ms']:.3f} ms on the mesh vs "
+        f"{out['unsharded_ms']:.3f} ms unsharded; the turn alone "
+        f"{out['turn_ms']:.3f} ms (host clock, medians)")
+    return out
+
+
+def mesh_service_phase() -> dict:
+    """``DPRTService`` on a (1, 1) ("data", "model") mesh over NCCL at N =
+    251, max batch 8, 64 requests: ``python -m repro_torch.launch.serve
+    --mode service --mesh-shape 1,1`` once, then each datapath's
+    sequential and coalesced runs counted (mesh_serve_expected_launches;
+    zero builds in them, after warmup and on every rank at ``close``; no
+    fallback; one turn per batch), its responses equal to the unsharded
+    service's from this run, to the plain versions and to each other
+    (solve within SOLVE_IMAGE_REL), images/s and p50/p99 beside the
+    unsharded service's; then the conv and roundtrip services restarted
+    from an aot_dir on the mesh plan in two processes, the second with an
+    empty build directory and nvcc that raises (every executable
+    restored, 0 builds)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_world, make_local_mesh
+    from repro_torch.launch.service import latency_summary
+
+    dev = torch.device(SERVE_DEVICE)
+    init_world(SERVE_DEVICE)
+    mesh = make_local_mesh(1, 1)
+    t0 = time.perf_counter()
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    served = serve.main([
+        "--mode", "service", "--mesh-shape", "1,1", "--device",
+        SERVE_DEVICE, "--datapath", "roundtrip", "--n", str(SERVE_N),
+        "--batch", str(SERVE_MAX_BATCH), "--requests", str(SERVE_REQUESTS),
+        "--iters", "2"])
+    cli = {"k1": dict(S.MODE_LAUNCHES), "k2": dict(P.OP_LAUNCHES)}
+    if len(served) != SERVE_REQUESTS or cli["k1"]["forward"] < 1 \
+            or cli["k1"]["core"] != cli["k1"]["forward"] \
+            or any(cli["k2"].values()):
+        fail(f"serve --mode service --mesh-shape 1,1: {len(served)} "
+             f"responses, launches {cli}")
+    log(f"mesh service: serve --mode service --mesh-shape 1,1 --datapath "
+        f"roundtrip, {SERVE_REQUESTS} requests in "
+        f"{time.perf_counter() - t0:.2f} s, launches {cli['k1']}")
+    prob = serve_problem(SERVE_N, dev)
+    out = {}
+    for dp in SERVE_DATAPATHS:
+        reqs = prob["requests"][dp]
+        flat = serve_service(dp, prob, dev)
+        flat.warmup()
+        flat_got = flat.run_requests(reqs, repeats=SERVE_REPEATS)
+        flat_lat = flat.stats()["latency"]
+        flat_rate = len(reqs) / min(flat.last_pass_walls)
+        svc = serve_service(dp, prob, dev, mesh=mesh)
+        if svc.stats()["method"] != "sharded_cuda":
+            fail(f"mesh service {dp} resolved to {svc.stats()['method']}")
+        t1 = time.perf_counter()
+        winfo = svc.warmup()
+        warm_s = time.perf_counter() - t1
+        (ref, seq_lat), seq = counted(lambda: svc.run_sequential(reqs))
+        want = mesh_serve_expected_launches(dp, len(reqs),
+                                            seq["iters"]["cg"])
+        if {k: seq[k] for k in want} != want:
+            fail(f"mesh serve {dp} sequential: launches {seq}, expected "
+                 f"{want}")
+        svc.reset_metrics()
+        got, co = counted(lambda: svc.run_requests(reqs,
+                                                   repeats=SERVE_REPEATS))
+        st = svc.stats()
+        want = mesh_serve_expected_launches(dp, st["batches"],
+                                            co["iters"]["cg"])
+        if {k: co[k] for k in want} != want:
+            fail(f"mesh serve {dp} coalesced: launches {co}, expected "
+                 f"{want}")
+        if st["requests"] != SERVE_REPEATS * len(reqs) or st["failures"] \
+                or st["fallback_uses"] or not svc.healthy():
+            fail(f"mesh serve {dp}: unhealthy\n{svc.healthz()}")
+        turns = svc.turns
+        builds = svc.close()
+        if builds != 0 or turns != len(reqs) + st["batches"]:
+            fail(f"mesh serve {dp}: {builds} builds after warmup, {turns} "
+                 f"turns for {len(reqs)} + {st['batches']} batches")
+        err = check_responses(f"mesh serve {dp} coalesced vs sequential",
+                              dp, got, ref)
+        err = max(err, check_responses(f"mesh serve {dp} vs unsharded",
+                                       dp, got, flat_got))
+        err = max(err, check_responses(f"mesh serve {dp} vs plain", dp,
+                                       got, prob["plain"][dp]))
+        lat = st["latency"]
+        seq_sum = latency_summary(seq_lat)
+        rate = len(reqs) / min(svc.last_pass_walls)
+        out[dp] = {"warmup_s": warm_s, "executables": winfo["executables"],
+                   "imgs_per_s": rate, "p50_ms": lat["p50_ms"],
+                   "p99_ms": lat["p99_ms"],
+                   "seq_imgs_per_s": len(reqs) / sum(seq_lat),
+                   "seq_p50_ms": seq_sum["p50_ms"],
+                   "unsharded_imgs_per_s": flat_rate,
+                   "unsharded_p50_ms": flat_lat["p50_ms"],
+                   "unsharded_p99_ms": flat_lat["p99_ms"],
+                   "batches": st["batches"], "turns": turns,
+                   "launches": {k: co[k] for k in ("k1", "k3")},
+                   "cg_iterations": co["iters"]["cg"], "max_err": err}
+        log(f"mesh serve {dp}: N={SERVE_N} on {mesh.mesh_dim_names} "
+            f"(1, 1), {len(reqs)} requests; coalesced {rate:.1f} img/s "
+            f"p50 {lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} ms vs "
+            f"unsharded {flat_rate:.1f} img/s p50 "
+            f"{flat_lat['p50_ms']:.3f} p99 {flat_lat['p99_ms']:.3f} ms "
+            f"(best of {SERVE_REPEATS}); sequential "
+            f"{out[dp]['seq_imgs_per_s']:.1f} img/s; launches k1 "
+            f"{co['k1']} k3 {co['k3']} over {st['batches']} batches, cg "
+            f"iterations {co['iters']['cg']}; {turns} turns; exact vs "
+            f"unsharded, plain and sequential"
+            + (f" (solve max |err|/peak {err:.3g})" if dp == "solve"
+               else "") + "; 0 builds, 0 fallbacks")
+    out["per_batch"] = mesh_turn_cost(prob, dev, mesh)
+    aot_dir = tempfile.mkdtemp(prefix="mesh_aot_")
+    try:
+        a = run_child(["--serve-restart-child", "MA", aot_dir])
+        e = a["executables"]
+        if (a["misses"], a["hits"], a["errors"]) != (e, 0, 0):
+            fail(f"mesh restart MA (cold): {a}, expected misses == {e}")
+        b = run_child(["--serve-restart-child", "MB", aot_dir])
+        if (b["hits"], b["misses"], b["errors"], b["nvcc_builds"]) \
+                != (e, 0, 0, 0):
+            fail(f"mesh restart MB (from blobs, no nvcc): {b}, expected "
+                 f"hits == {e}, 0 misses, 0 nvcc builds")
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    log(f"mesh service restart over one aot_dir, {e} executables "
+        f"({'+'.join(RESTART_DATAPATHS)}, N={SERVE_N}, mesh (1, 1)): MA "
+        f"misses {a['misses']}, warmup {a['warmup_s']:.3f} s; MB restored "
+        f"hits {b['hits']} with an empty build dir and no nvcc, 0 builds, "
+        f"warmup {b['warmup_s']:.3f} s; responses exact")
+    out["restart"] = {"executables": e, "cold_warmup_s": a["warmup_s"],
+                      "restored_warmup_s": b["warmup_s"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the LM substrate's serving path (plain PyTorch: no hand-written kernel)
 # ---------------------------------------------------------------------------
 LM_DEVICE = "cuda"
@@ -3151,8 +3410,6 @@ LM_CHECK_B, LM_CHECK_S = 2, 40
 LM_PREFILL_REL, LM_DECODE_REL = 1e-4, 2e-3
 #: the card against the port's own CPU run, relative to the logits' peak
 LM_CPU_REL = 1e-3
-#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12
 
 
 def tree_to(tree, device):
@@ -3512,8 +3769,6 @@ TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_MOMENT_REL = 1e-5, 1e-4, 1e-4
 #: this share of a leaf's elements, whose gradient lies within ~1e-8 of
 #: zero where that step is steep in g (those within 2.2 lr)
 TRAIN_FLIP_SHARE = 1e-2
-#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12
 
 
 def dprt_kernel_launches() -> int:
@@ -3920,6 +4175,110 @@ def train_phase() -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the cost models beside this run's measurements
+# ---------------------------------------------------------------------------
+def cost_phase(lm: dict, trained: dict, k1_forward: dict) -> dict:
+    """The counted cost models beside what this run measured:
+    ``launch.hlo_cost.analyze_step`` over tinyllama-1.1b at full width on
+    meta structs -- the float32 train step at TRAIN_BATCH x TRAIN_SEQ
+    (remat full), and at LM_BATCH each LM_TIMING prefill and a decode
+    step into a cache of prompt + gen at position ``prompt`` -- with
+    ``roofline_terms`` at the float32 peak, beside ``lm_bounds`` /
+    ``train_bounds`` and the step ms of the LM and training phases; and
+    ``core.pareto.h100_strip_cost`` for K1's forward at radon_251 at each
+    directions-per-block value of the timing phase's sweep, beside its
+    measured ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.radon_251 import config as radon_config
+    from repro_torch.core.pareto import h100_strip_cost
+    from repro_torch.launch import shapes
+    from repro_torch.launch.hlo_cost import analyze_step
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_abstract
+    from repro_torch.parallel.sharding import abstract_params
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def row(label, counts, measured_ms, hand_ms):
+        terms = roofline_terms(counts["flops"], counts["bytes"],
+                               counts["coll_bytes"], 1,
+                               peak_flops=HW["f32_flops"])
+        r = {"flops": counts["flops"], "dot_flops": counts["dot_flops"],
+             "bytes": counts["bytes"], "ops": counts["ops"],
+             "compute_ms": 1e3 * terms["compute_s"],
+             "memory_ms": 1e3 * terms["memory_s"],
+             "bound_ms": 1e3 * terms["step_s_lower_bound"],
+             "dominant": terms["dominant"], "hand_bound_ms": hand_ms,
+             "measured_ms": measured_ms,
+             "top_flops": counts["flops_by_op"],
+             "top_bytes": counts["bytes_by_op_unscaled"]}
+        log(f"cost {label}: counted {r['flops']:.4e} flop ({r['dot_flops']:.4e} "
+            f"in products), {r['bytes']:.4e} B, {r['ops']} ops -> float32 "
+            f"roofline {r['bound_ms']:.3f} ms ({r['dominant']}; compute "
+            f"{r['compute_ms']:.3f}, memory {r['memory_ms']:.3f}); hand "
+            f"bound {hand_ms:.3f} ms; measured {measured_ms:.3f} ms")
+        return r
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg)
+    params = abstract_params(model.specs(), torch.float32)
+    out = {}
+    step, _ = make_train_step(model, None, "train_4k",
+                              param_dtype=torch.float32)
+    f32 = next(r for r in trained["timing"] if r["dtype"] == "float32")
+    out["train_float32"] = row(
+        f"train step float32 {TRAIN_BATCH}x{TRAIN_SEQ} remat "
+        f"{cfg.remat}", analyze_step(
+            step, params, adamw_abstract(params),
+            {"tokens": meta(TRAIN_BATCH, TRAIN_SEQ),
+             "labels": meta(TRAIN_BATCH, TRAIN_SEQ)}),
+        f32["step_ms"], f32["bound_ms"])
+    prefill, _ = make_prefill_step(model, None, "prefill_32k",
+                                   param_dtype=torch.float32)
+    decode, _ = make_decode_step(model, None, "decode_32k",
+                                 param_dtype=torch.float32)
+    for t in lm["timing"]:
+        p, g = t["prompt"], t["gen"]
+        with torch.inference_mode():
+            pre = analyze_step(prefill, params,
+                               {"tokens": meta(LM_BATCH, p)})
+            dec = analyze_step(decode, params,
+                               shapes.cache_structs(model, LM_BATCH, p + g),
+                               meta(LM_BATCH, 1), p)
+        out[f"prefill_{p}"] = row(f"prefill b={LM_BATCH} prompt={p}", pre,
+                                  t["prefill_ms"], t["prefill_bound_ms"])
+        out[f"decode_{p}_{g}"] = row(
+            f"decode step b={LM_BATCH} at {p} of {p + g}", dec,
+            t["decode_ms_per_step"], t["decode_bound_ms"])
+    rcfg = radon_config()
+    design = k1_forward["design"]
+    k1 = {}
+    for d, m in sorted(k1_forward["by_directions_per_block"].items()):
+        c = h100_strip_cost(rcfg.n, rcfg.batch, 4, d, design["stage_rows"],
+                            design["ring_slots"])
+        k1[d] = {"predicted_ms": c.ms, "bound_by": c.bound_by,
+                 "hbm_ms": c.hbm_ms, "add_ms": c.add_ms,
+                 "load_ms": c.load_ms, "tail": c.tail, "waves": c.waves,
+                 "blocks": c.blocks, "per_sm": c.per_sm,
+                 "smem_bytes": c.smem_bytes, "measured_ms": m["ms"]}
+        log(f"cost K1 forward strip model at N={rcfg.n} B={rcfg.batch} "
+            f"D={d}: predicted {c.ms:.4f} ms ({c.bound_by}; HBM "
+            f"{c.hbm_ms:.4f}, adds {c.add_ms:.4f}, shared loads "
+            f"{c.load_ms:.4f}; {c.blocks} blocks, {c.per_sm} per SM, "
+            f"{c.waves:.2f} waves, tail x{c.tail:.3f}); measured "
+            f"{m['ms']:.4f} ms")
+    out["k1_strip_model"] = k1
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3927,9 +4286,8 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir() or not HW:
         fail(f"no port sources under {SRC}: run from a checkout")
-    sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--serve-restart-child"]:
         return restart_child(sys.argv[2], sys.argv[3])
     from repro_torch.launch.mesh import close_world
@@ -3950,22 +4308,26 @@ def main() -> int:
     four_shards_phase()
     solve_info = solve_main_path_phase()
     serving = {"service": serving_phase(), "restart": warm_restart_phase(),
-               "router_chaos": router_chaos_phase(), "pool": pool_phase()}
+               "router_chaos": router_chaos_phase(), "pool": pool_phase(),
+               "mesh_service": mesh_service_phase()}
     kernels = timing_phase(launches, worst,
                            pipe_launches["k1"]["forward"])
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
     kernels += stream_timing_phase(giant_launches, stream_worst)
     kernels += tail_timing_phase(mesh_launches, tail_worst)
     kernels += solve_timing_phase(solve_info)
+    mark_mesh_service_launches(kernels, serving["mesh_service"])
     pipeline_profile_phase()
     pipeline_profile_phase(mesh=True)
     close_world()
     lm = lm_phase()
     trained = train_phase()
+    cost = cost_phase(lm, trained, kernels[0])
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
+    print(json.dumps({"cost": cost}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from .conv import (circ_conv2d_dprt, circ_conv2d_direct, circ_conv2d_fft,
                    linear_conv2d_dprt, linear_conv2d_direct,
                    circ_conv1d_exact, prime_vs_pow2_padding)
 from .dft import dft2_via_dprt, dft2_via_dprt_batched, dft2_reference
+from . import pareto
 
 __all__ = [
     "dprt", "idprt", "dprt_batched", "idprt_batched",
@@ -35,5 +36,5 @@ __all__ = [
     "circ_conv2d_dprt", "circ_conv2d_direct", "circ_conv2d_fft",
     "linear_conv2d_dprt", "linear_conv2d_direct", "circ_conv1d_exact",
     "prime_vs_pow2_padding", "dft2_via_dprt", "dft2_via_dprt_batched",
-    "dft2_reference",
+    "dft2_reference", "pareto",
 ]

@@ -38,6 +38,9 @@ conv with a 3x3 ones kernel, solve the unmasked least-squares
 reconstruction of sinogram requests), with an optional persistent
 executable cache (``--aot-dir``: a restart installs the exported nvcc
 libraries instead of running nvcc) and a ``/healthz``-style report.
+With ``--mesh-shape`` its operators run on the mesh: every rank warms
+up, rank 0 batches and answers the requests, and the other ranks run
+each of its batches with it (``DPRTService.follow``).
 Three sub-modes grow it into the multi-tenant tier:
 
 * ``--jsonl`` runs the stdin-jsonl worker over a
@@ -178,6 +181,10 @@ def parse_mesh_shape(spec, device: torch.device):
     return init_device_mesh(mesh_device_type(), dims, mesh_dim_names=axes)
 
 
+def _mesh_note(mesh) -> str:
+    return str(dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape))))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -240,8 +247,7 @@ def _serve_radon(args) -> torch.Tensor:
     b = imgs.shape[0]
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
-    mesh_note = "" if mesh is None else (
-        f" mesh={dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))}")
+    mesh_note = "" if mesh is None else f" mesh={_mesh_note(mesh)}"
     if lead:
         print(f"[serve-radon] N={n} (prime P={op.plan.geometry.prime}) "
               f"batch={b} method={args.method}->{op.plan.method}{mesh_note} "
@@ -323,14 +329,26 @@ def _oracle(n: int, img, device) -> np.ndarray:
 def serve_service(args):
     """The dynamic-batching service: warm up (optionally through the
     persistent executable cache), run a sequential per-request baseline,
-    then the same traffic coalesced, and print the healthz report."""
+    then the same traffic coalesced, and print the healthz report.  On
+    ``--mesh-shape`` every rank warms up, rank 0 serves and the others
+    follow its batches; a process group this function opened is closed
+    again when it returns or fails."""
+    opened = args.mesh_shape is not None and not dist.is_initialized()
+    try:
+        return _serve_service(args)
+    finally:
+        if opened:
+            from .mesh import close_world
+            close_world()
+
+
+def _serve_service(args):
     rcfg = radon_smoke() if args.smoke else radon_config()
     device = resolve_device(args.device)
     n = args.n or rcfg.n
-    if args.mesh_shape is not None:
-        raise SystemExit("--mode service serves without a mesh in the port "
-                         "(--mesh-shape is --mode radon's)")
-    if args.method != "auto" and get_backend(args.method).mesh_aware:
+    mesh = parse_mesh_shape(args.mesh_shape, device)
+    if (args.method != "auto" and mesh is None
+            and get_backend(args.method).mesh_aware):
         raise SystemExit(f"--method {args.method} needs --mesh-shape")
     max_batch = args.batch or rcfg.batch
     requests = args.requests or (2 * max_batch if args.smoke else 64)
@@ -343,7 +361,8 @@ def serve_service(args):
                       strip_rows=args.strip_rows, m_block=args.m_block,
                       batch_impl=args.batch_impl,
                       stream_rows=args.stream_rows,
-                      block_batch=args.block_batch, device=device)
+                      block_batch=args.block_batch, device=device,
+                      **({} if mesh is None else {"mesh": mesh}))
     imgs = list(radon_images(n, requests, kind="phantom"))
     if args.datapath in ("inverse", "solve"):
         # inverse and solve requests are projections: forward-project
@@ -355,6 +374,25 @@ def serve_service(args):
         imgs = [fwd(torch.from_numpy(im).to(device)).cpu().numpy()
                 .astype(svc.request_np_dtype) for im in imgs]
     winfo = svc.warmup()
+    if mesh is not None and dist.get_rank() != 0:
+        turns = svc.follow()           # every batch rank 0 dispatches
+        print(f"[serve-service] rank {dist.get_rank()} followed {turns} "
+              f"batches", file=sys.stderr)
+        return None
+    try:
+        return _lead_service(args, svc, imgs, winfo, mesh)
+    finally:
+        builds = svc.close()
+        if builds is not None:
+            print(f"[serve-service] mesh {_mesh_note(mesh)}: "
+                  f"{dist.get_world_size()} ranks, {svc.turns} "
+                  f"batches on each, builds after warmup on every rank: "
+                  f"{builds}")
+
+
+def _lead_service(args, svc, imgs, winfo, mesh):
+    """The service's benchmark: the sequential baseline, the coalesced
+    passes and the healthz report, on rank 0 of a mesh."""
     cache_note = ""
     if "persistent" in winfo:
         p = winfo["persistent"]

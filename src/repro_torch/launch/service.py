@@ -37,6 +37,21 @@ there is no card; ``"cpu"`` runs the kernels' plain versions).  Batches
 execute on ``asyncio.to_thread`` worker threads, each entering its card
 (``torch.cuda.device``).
 
+**On a mesh** (``mesh=`` a DeviceMesh over every rank of the process
+group) each rank is a process, and a sharded operator is a collective
+call, so every rank must run the same batches, of the same padded
+sizes, in the same order.  Every rank builds the service and calls
+:meth:`warmup` (each warm size's executables are built once on every
+rank).  The mesh's first rank, the *leader*, then runs the batcher and
+answers requests; every other rank calls :meth:`follow`.  For each batch
+the leader broadcasts a header (execute, fallback or stop; padded size;
+sequence number), then the stack; every rank runs it, and the ranks
+agree on the batch's outcome (one ``all_reduce``) before the leader
+replies, so a rank that failed makes the leader's ``execute`` raise and
+no rank is left inside a collective.  The output is assembled on the
+leader.  :meth:`close` on the leader sends stop and sums the builds
+every rank made after warmup.
+
 The latency summary/formatting helpers here are shared with the
 ``serve --mode radon`` timing loop, so every serving surface reports the
 same percentile statistics.
@@ -51,6 +66,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import radon
 from ..core.dprt import as_dtype, dtype_name
@@ -122,6 +138,66 @@ def format_latency(summary: Dict[str, float],
 
 
 # ---------------------------------------------------------------------------
+# the ranks of a mesh service
+# ---------------------------------------------------------------------------
+_STOP, _EXECUTE, _FALLBACK = 0, 1, 2
+
+
+class _RankLink:
+    """The leader's and the followers' halves of a mesh service's
+    batches, over the default process group (which the mesh spans).
+
+    One *turn* per batch: the leader broadcasts ``[kind, batch, seq]``
+    and then the stack; every rank computes; :meth:`agree` all-reduces
+    each rank's success.  Turns are serialized by a lock on the leader
+    (the batcher dispatches from several threads), so the followers see
+    them in the leader's order."""
+
+    def __init__(self, mesh, device: torch.device):
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError(
+                f"a mesh service's mesh must span every rank of the "
+                f"process group: {mesh.mesh.numel()} of "
+                f"{dist.get_world_size()}")
+        self.device = device
+        self.src = int(mesh.mesh.flatten()[0])
+        self.leader = dist.get_rank() == self.src
+        self.lock = threading.Lock()
+        self.turns = 0
+
+    def send(self, kind: int, batch: int = 0) -> None:
+        """Leader: the header of the next turn."""
+        dist.broadcast(torch.tensor([kind, batch, self.turns],
+                                    dtype=torch.int64, device=self.device),
+                       self.src)
+
+    def recv(self) -> Tuple[int, int, int]:
+        """Follower: the next header, ``(kind, batch, seq)``."""
+        head = torch.empty(3, dtype=torch.int64, device=self.device)
+        dist.broadcast(head, self.src)
+        return tuple(head.tolist())
+
+    def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """The turn's stack: the leader's ``x``, received in place on a
+        follower."""
+        dist.broadcast(x, self.src)
+        return x
+
+    def agree(self, ok: bool) -> bool:
+        """Every rank's outcome of the turn: True when all succeeded."""
+        flag = torch.tensor([int(ok)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        self.turns += 1
+        return bool(flag.item())
+
+    def total(self, count: int) -> int:
+        """``count`` summed over the ranks."""
+        t = torch.tensor([count], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t)
+        return int(t.item())
+
+
+# ---------------------------------------------------------------------------
 # the service
 # ---------------------------------------------------------------------------
 class _Request:
@@ -161,8 +237,10 @@ class DPRTService:
 
     Transform knobs (``method``, ``strip_rows``, ``m_block``,
     ``stream_rows``, ``mesh``, ...) pass through to the operators
-    unchanged.  The object is reusable across event loops: queue and
-    batcher task are created per run, metrics accumulate on the object.
+    unchanged; with ``mesh`` the leader rank serves and the others
+    :meth:`follow` (module docstring).  The object is reusable across
+    event loops: queue and batcher task are created per run, metrics
+    accumulate on the object.
     Requests and responses are numpy arrays; ``device`` is where the
     kernels run (``"cuda"`` raises without a card).
     """
@@ -238,6 +316,10 @@ class DPRTService:
         #: the numpy dtype requests must carry
         self.request_np_dtype = np.dtype(dtype_name(first.dtype_in))
         self._exes: Dict[int, tuple] = {}
+        mesh = knobs.get("mesh")
+        self._link = (None if mesh is None
+                      else _RankLink(mesh, self.device))
+        self._closed = False
 
         # -- degraded path -------------------------------------------------
         self._fallback = None          # the staged/registry applier
@@ -383,14 +465,17 @@ class DPRTService:
         with _on_device(self.device), torch.no_grad():
             return self._fallback(self._to_device(stack)).cpu().numpy()
 
+    def _fallback_turn(self, x: torch.Tensor) -> torch.Tensor:
+        self.prepare_fallback()
+        return self._fallback(x)
+
     def execute_fallback(self, stack: np.ndarray) -> np.ndarray:
         """Run one admitted stack through the degraded path -- bit-exact
         vs the primary executables (integers), just slower (separate
         launches).  It runs only when the primary raised, on the same
         device and through the same hand-written kernels; counted in
         ``fallback_uses``.  A fallback that was never prepared builds
-        here, mid-incident."""
-        self.prepare_fallback()
+        here, mid-incident (on a mesh: on every rank, in the turn)."""
         b = int(stack.shape[0])
         if b > self.max_batch:
             raise ValueError(f"fallback stack of {b} exceeds max_batch "
@@ -399,8 +484,17 @@ class DPRTService:
             pad = np.zeros((self.max_batch - b,) + tuple(stack.shape[1:]),
                            stack.dtype)
             stack = np.concatenate([stack, pad])
-        perturb("fallback", key=self.fault_key)
-        out = self._run_fallback(stack)
+        if self._link is None:
+            self.prepare_fallback()
+            perturb("fallback", key=self.fault_key)
+            out = self._run_fallback(stack)
+        else:
+            # the fault seam fires before the turn: a local fault leaves
+            # no follower waiting inside a collective
+            perturb("fallback", key=self.fault_key)
+            with _on_device(self.device), torch.no_grad():
+                out = self._lead(_FALLBACK, self._to_device(stack),
+                                 self._fallback_turn)
         with self._metrics_lock:
             self._fallback_uses += 1
             self._requests_done += b
@@ -558,15 +652,108 @@ class DPRTService:
             self._pending.add(task)
             task.add_done_callback(self._pending.discard)
 
+    def _chain(self, warm: int, x: torch.Tensor) -> torch.Tensor:
+        for exe in self._exes[warm]:
+            x = exe(x)
+        return x
+
     def _compute(self, warm: int, stack: np.ndarray) -> np.ndarray:
         """One host-to-device copy of the stack, the executable chain on
         the device (no host copy between stages), one device-to-host
-        copy of the result."""
+        copy of the result; on a mesh, one turn of every rank."""
         with _on_device(self.device), torch.no_grad():
             x = self._to_device(stack)
-            for exe in self._exes[warm]:
-                x = exe(x)
-            return x.cpu().numpy()
+            if self._link is None:
+                return self._chain(warm, x).cpu().numpy()
+            return self._lead(_EXECUTE, x,
+                              lambda x: self._chain(warm, x))
+
+    # -- the ranks of a mesh -----------------------------------------------
+    def _lead(self, kind: int, x: torch.Tensor, fn) -> np.ndarray:
+        """The leader's turn: header and stack to every rank, ``fn(x)``
+        here as there, then the ranks' agreement; raises when any rank
+        failed."""
+        link = self._link
+        if not link.leader:
+            raise RuntimeError(f"DPRTService({self.fault_key}): only the "
+                               f"mesh's first rank dispatches batches; "
+                               f"the other ranks call follow()")
+        if self._closed:
+            raise ServiceShutdown(f"DPRTService({self.fault_key}) was "
+                                  f"closed: its follower ranks are gone")
+        with link.lock:
+            link.send(kind, int(x.shape[0]))
+            link.stack(x)
+            out, err = None, None
+            try:
+                out = fn(x).cpu().numpy()
+            except Exception as e:      # every rank must still agree
+                err = e
+            if not link.agree(err is None):
+                raise err or RuntimeError(
+                    f"DPRTService({self.fault_key}): a follower rank "
+                    f"failed turn {link.turns - 1}")
+        return out
+
+    def follow(self) -> int:
+        """A follower rank's half of a mesh service, after
+        :meth:`warmup`: run every turn the leader sends -- the batch
+        through this rank's executables, or the degraded path -- until
+        it sends stop, then sum the builds after warmup with the
+        leader's :meth:`close`.  Returns the turns run, which the stop's
+        sequence number checks equal to the leader's."""
+        link = self._link
+        if link is None or link.leader:
+            raise RuntimeError("follow() is for the ranks of a mesh "
+                               "service other than its first")
+        if not self._exes:
+            raise RuntimeError("DPRTService.warmup() must run before "
+                               "follow()")
+        with _on_device(self.device), torch.no_grad():
+            while True:
+                kind, b, seq = link.recv()
+                if seq != link.turns:
+                    raise RuntimeError(
+                        f"DPRTService({self.fault_key}): the leader sent "
+                        f"turn {seq}, this rank ran {link.turns}")
+                if kind == _STOP:
+                    break
+                x = link.stack(torch.empty(
+                    (b,) + self.request_shape, dtype=self.request_dtype,
+                    device=self.device))
+                ok = True
+                try:
+                    if kind == _EXECUTE:
+                        self._chain(b, x)
+                    else:
+                        self._fallback_turn(x)
+                except Exception:       # the leader's execute raises
+                    ok = False
+                    with self._metrics_lock:
+                        self._failures += b
+                link.agree(ok)
+        link.total(self.steady_state_retraces() or 0)
+        return link.turns
+
+    @property
+    def turns(self) -> int:
+        """Batches this rank has run as a turn of its mesh (0 without
+        one)."""
+        return 0 if self._link is None else self._link.turns
+
+    def close(self) -> Optional[int]:
+        """Release a mesh service's follower ranks (the leader's stop;
+        their :meth:`follow` returns) and return the builds after warmup
+        summed over every rank; None on a follower or without a mesh.
+        The service serves no batch after it; a second call returns
+        None."""
+        link = self._link
+        if link is None or not link.leader or self._closed:
+            return None
+        with link.lock:
+            self._closed = True
+            link.send(_STOP)
+        return link.total(self.steady_state_retraces() or 0)
 
     def execute(self, stack: np.ndarray) -> np.ndarray:
         """Synchronous batched dispatch: pad the validated ``(b, …)``

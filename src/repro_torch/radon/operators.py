@@ -397,6 +397,16 @@ class _AOTSurface:
                          replace=True)
 
 
+def _collective_lead(op) -> Optional[bool]:
+    """None unless ``op``'s plan is on a mesh of more than one rank;
+    then whether this process is the mesh's first rank."""
+    plan = getattr(op, "plan", None)
+    mesh = None if plan is None else plan.mesh
+    if mesh is None or mesh.mesh.numel() < 2:
+        return None
+    return torch.distributed.get_rank() == int(mesh.mesh.flatten()[0])
+
+
 class PersistentAOTCache:
     """Disk-backed executable cache: :meth:`export_executable` bytes
     keyed by ``cache_token(device)`` and stored through the
@@ -424,6 +434,13 @@ class PersistentAOTCache:
     the holder PID and are stolen once it is dead (``lock_steals``); a
     filesystem that cannot do O_EXCL degrades to unlocked operation
     (``lock_degraded``).
+
+    An operator on a mesh of more than one rank is built *collectively*:
+    its warm call is a collective that every rank of the mesh makes
+    together, so no rank may wait on a peer's file lock across it.  Every
+    rank restores or compiles without the file lock (a blob is published
+    by an atomic rename, so a read sees all of it or none), and only the
+    mesh's first rank writes the blob, under the lock.
     """
 
     def __init__(self, directory: str, *, lock_stale_s: float = 120.0,
@@ -456,6 +473,10 @@ class PersistentAOTCache:
                 exe = _AOT_CACHE.get(op._aot_key(device))
             if exe is not None:
                 return exe
+            leads = _collective_lead(op)
+            if leads is not None:
+                return self._restore_or_compile(op, key, device,
+                                                publish=leads)
             try:
                 with blob_lock(self.directory, key,
                                stale_s=self.lock_stale_s,
@@ -467,11 +488,14 @@ class PersistentAOTCache:
                 self.lock_degraded += 1     # unlocked is worse, outage is
                 return self._restore_or_compile(op, key, device)
 
-    def _restore_or_compile(self, op, key: str, device: torch.device):
+    def _restore_or_compile(self, op, key: str, device: torch.device,
+                            publish: Optional[bool] = None):
         """Disk-restore-else-compile for ``key``; the caller holds the
         in-process token lock and (normally) the cross-process file
-        lock, so the load sees any blob a peer published meanwhile."""
-        from ..checkpoint.store import load_blob, save_blob
+        lock, so the load sees any blob a peer published meanwhile.  A
+        collective build (``publish`` not None) holds no file lock: a
+        compile is saved, under the lock, only where ``publish``."""
+        from ..checkpoint.store import blob_lock, load_blob, save_blob
         data = None
         had_blob = False
         try:
@@ -492,9 +516,15 @@ class PersistentAOTCache:
         if had_blob:                    # blob existed but could not
             self.degraded_compiles += 1  # restore: degraded cold start
         exe = op.compile(device)
+        if publish is False:
+            return exe
         try:
-            save_blob(self.directory, key, op.export_executable(device),
-                      meta={"fingerprint": fingerprint})
+            data = op.export_executable(device)
+            with (blob_lock(self.directory, key, stale_s=self.lock_stale_s,
+                            timeout_s=self.lock_timeout_s)
+                  if publish else contextlib.nullcontext()):
+                save_blob(self.directory, key, data,
+                          meta={"fingerprint": fingerprint})
         except Exception:               # read-only disk etc.: serve
             self.errors += 1            # from memory, count it
         return exe

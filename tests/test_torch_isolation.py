@@ -66,7 +66,8 @@ def test_port_has_the_slice_modules():
                 "optim/__init__.py", "optim/adamw.py", "optim/compress.py",
                 "runtime/__init__.py", "runtime/trainer.py",
                 "data/pipeline.py", "launch/train.py", "launch/steps.py",
-                "launch/shapes.py"):
+                "launch/shapes.py", "core/pareto.py", "launch/roofline.py",
+                "launch/hlo_cost.py"):
         assert mod in rel, mod
     for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
