@@ -99,6 +99,20 @@ bounds and the step ms the LM and training phases measured; and
 ``core.pareto.h100_strip_cost`` for K1 at ``radon_251`` at each
 directions-per-block value the timing phase sweeps, beside its ms.
 
+The tensor-parallel phase: tinyllama-1.1b at full width, the float32
+train step (8 x 128) through ``launch.steps.make_train_step`` on a
+(1, 1) NCCL mesh equal to the step with no mesh on the same weights and
+batch (loss within 1e-5, parameters and first moments within 1e-4 of
+each leaf's peak), both timed with CUDA events; two ``Trainer`` steps at
+the cut depth on the (1, 1) mesh equal to no mesh; the (1, 2) step as
+two processes on the one card over gloo with CUDA tensors (spawned under
+a deadline) against the one-process step; every step at a rate that moves
+each leaf by at least ten times the bound, so an unchanged state fails;
+no K1-K5 launch in this process or in either rank.  Then ``launch.dryrun.run_cell`` for
+``qwen3_0_6b`` ``decode_32k`` and tinyllama ``train_4k`` on the 16 x 16
+production mesh (256 fake ranks): counts and predictions, printed beside
+the measured step.
+
 It checks that each path ran through its kernels without rebuilding
 anything in the timed loop, fails if ptxas spills registers in any
 instantiation of K1, K2, K3 or the streamed kernel, and times every
@@ -112,7 +126,9 @@ one ``Conv2D`` call of the pipeline path and one of the mesh path.
 Output: progress lines, a ``{"serving": {...}}`` JSON line of the
 serving phase's numbers (the mesh service's among them), an ``{"lm":
 {...}}`` line of the LM phase's, a ``{"train": {...}}`` line of the
-training phase's, a ``{"cost": {...}}`` line of the cost phase's, then a
+training phase's, a ``{"cost": {...}}`` line of the cost phase's, a
+``{"tp": {...}}`` line of the tensor-parallel phase's (the dry-run cells
+under ``"dryrun"``), then a
 ``{"kernels": [...]}`` JSON line (the int32 K1 and K3 rows also with
 their ``mesh_service_launches``), the
 card's name and power limit from nvidia-smi, and as the last line
@@ -3771,6 +3787,16 @@ TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_MOMENT_REL = 1e-5, 1e-4, 1e-4
 TRAIN_FLIP_SHARE = 1e-2
 
 
+def reset_dprt_kernel_launches() -> None:
+    """Set the K1-K5 launch counts to 0."""
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    S.reset_launch_counts()
+    P.reset_launch_counts()
+    ST.reset_launch_counts()
+
+
 def dprt_kernel_launches() -> int:
     """K1-K5 launches counted since the last reset."""
     from repro_torch.kernels import pipeline as P
@@ -4279,6 +4305,385 @@ def cost_phase(lm: dict, trained: dict, k1_forward: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: tensor parallelism and the production-mesh dry run
+# ---------------------------------------------------------------------------
+TP_DEVICE = "cuda"
+TP_TIMING_REPS = 3
+#: the (1, 1) and (1, 2) steps against the one-process step: the loss
+#: (relative), every first and second moment (of its leaf's peak), and
+#: every parameter against the plain AdamW update from the step's own
+#: moments (of its leaf's peak) -- ``tests/test_torch_lm_train.py``'s
+#: LOSS_REL and GRAD_REL.  The parameters are not held against the
+#: one-process step's: AdamW's first update, g / (|g| + eps), turns the
+#: float32 noise of a gradient near eps (1e-8) into an O(1) difference.
+TP_LOSS_REL, TP_GRAD_REL = 1e-5, 1e-4
+#: the steps' base rate: ``make_train_step`` warms up over 100 steps, so
+#: the first runs at TP_FIRST_LR = 1e-2, which moves every leaf of
+#: tinyllama by more than TP_MOVED of its peak: the parameter check
+#: separates an unchanged state from the update
+TP_LR = 1.0
+TP_FIRST_LR = TP_LR / 100
+TP_MOVED = 10 * TP_GRAD_REL
+#: the Trainer check's rate and warmup: 1e-2 and 2e-2 at its two steps
+TP_TRAINER_LR, TP_TRAINER_WARMUP = 0.1, 10
+#: the wall-clock limit of the (1, 2) step's two processes
+TP_CHILD_TIMEOUT_S = 300
+#: dry-run cells counted on the 16 x 16 production mesh (256 fake ranks)
+TP_DRYRUN_CELLS = (("qwen3_0_6b", "decode_32k"),
+                   ("tinyllama_1_1b", "train_4k"))
+
+
+def tp_step_inputs(cfg, dev):
+    """The model, its float32 parameters from seed 0 drawn on ``dev``, and
+    batch 0 of the token stream (TRAIN_BATCH x TRAIN_SEQ) on ``dev``."""
+    import torch
+    from repro_torch.data import TokenStream, shard_batch
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import init_params
+    model = Model(cfg)
+    params = init_params(model.specs(), 0, torch.float32, dev)
+    batch = shard_batch(TokenStream(cfg.vocab_size, TRAIN_SEQ,
+                                    TRAIN_BATCH).batch(0), None, dev)
+    return model, params, batch
+
+
+def tp_clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def tp_rels(got: dict, want: dict) -> list:
+    """Each leaf's largest difference over that leaf's peak in ``want``,
+    of two trees of the same leaves (or of shards against their wholes'
+    slices, ``want`` already sliced)."""
+    from repro_torch.tree import tree_items
+    rels = []
+    for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        if tuple(g.shape) != tuple(w.shape):
+            raise ValueError(f"{'/'.join(path)}: {tuple(g.shape)} vs "
+                             f"{tuple(w.shape)}")
+        scale = float(w.detach().abs().max()) + 1e-30
+        rels.append(float((g.detach() - w.detach()).abs().max()) / scale)
+    return rels
+
+
+def tp_worst(got: dict, want: dict) -> float:
+    return max(tp_rels(got, want))
+
+
+def tp_moved(before: dict, after: dict, label: str) -> float:
+    """The least change of a leaf in a step, over its peak: each must be
+    at least TP_MOVED, so that a check within TP_GRAD_REL fails for a
+    state the step left unchanged."""
+    least = min(tp_rels(before, after))
+    if least < TP_MOVED:
+        fail(f"tp: {label}: a leaf moved only {least:.2e} of its peak, "
+             f"under {TP_MOVED}: the parameter check could not tell an "
+             f"unchanged state")
+    return least
+
+
+def tp_plain_update(before, mu, nu, lr: float):
+    """The parameters after AdamW's first step from ``before`` with the
+    step's moments ``mu`` and ``nu`` at rate ``lr``: plain float32, the
+    bias corrections of step 1 and ``AdamWConfig``'s b1, b2, eps and
+    decay."""
+    import torch
+    from repro_torch.tree import tree_map
+    b1, b2, eps, decay = 0.9, 0.95, 1e-8, 0.1
+    return tree_map(
+        lambda p, m, v: p - lr * ((m / (1 - b1))
+                                  / (torch.sqrt(v / (1 - b2)) + eps)
+                                  + decay * p), before, mu, nu)
+
+
+def tp_step_rels(loss: float, before, params, opt, want: dict) -> dict:
+    """A step's loss against the one-process step's (relative), its
+    moments against the one-process step's and its parameters against
+    the plain update from ``before`` with its own moments (of each
+    leaf's peak)."""
+    return {"loss": loss,
+            "loss_rel": abs(loss - want["loss"]) / abs(want["loss"]),
+            "mu_rel": tp_worst(opt["mu"], want["mu"]),
+            "nu_rel": tp_worst(opt["nu"], want["nu"]),
+            "update_rel": tp_worst(params, tp_plain_update(
+                before, opt["mu"], opt["nu"], TP_FIRST_LR))}
+
+
+def tp_gate(label: str, rels: dict) -> dict:
+    if rels["loss_rel"] > TP_LOSS_REL or max(
+            rels["mu_rel"], rels["nu_rel"], rels["update_rel"]) > TP_GRAD_REL:
+        fail(f"tp: {label}: {json.dumps(rels)} (bounds {TP_LOSS_REL} "
+             f"for the loss, {TP_GRAD_REL} for the moments and the "
+             f"update)")
+    return rels
+
+
+def tp_timed(fn, params, opt, batch, dev) -> float:
+    """Median ms of TP_TIMING_REPS steps after one warm step (CUDA
+    events on the card); each step updates ``params`` / ``opt`` in
+    place."""
+    import torch
+
+    def step():
+        fn(params, opt, batch)
+
+    if torch.device(dev).type == "cuda":
+        return cuda_ms(step, reps=TP_TIMING_REPS, warm=1)
+    step()
+    times = []
+    for _ in range(TP_TIMING_REPS):
+        t0 = time.perf_counter()
+        step()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def tp_child(rank: int, world: int, port: int, cfg, dev: str,
+             out_dir: str) -> None:
+    """One of the (1, 2) step's two processes on the one card, over gloo
+    with CUDA tensors: the one-process step on the same weights and batch
+    first (its want), then the tensor-parallel step on this rank's
+    shards, checked against the slices of the want; then the step timed.
+    Any error fails the rank, and so the run; the rank reports its K1-K5
+    launches since its start."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import param_shardings, shard_params
+    from repro_torch.tree import tree_map
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(0)
+    reset_dprt_kernel_launches()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        model, params, batch = tp_step_inputs(cfg, dev)
+        one, _ = make_train_step(model, None, "train_4k", lr=TP_LR,
+                                 param_dtype=torch.float32)
+        p = tp_clone(params)
+        opt = adamw_init(p)
+        p, opt, m = one(p, opt, batch)
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        spec = param_shardings(model.specs(), mesh)
+        want = {"loss": float(m["loss"]),
+                "mu": tree_map(lambda t: t.clone(),
+                               shard_params(opt["mu"], spec, mesh)),
+                "nu": tree_map(lambda t: t.clone(),
+                               shard_params(opt["nu"], spec, mesh))}
+        del p, opt, m, one
+        local = tree_map(lambda t: t.clone(),
+                         shard_params(params, spec, mesh))
+        del params
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        fn, _ = make_train_step(model, mesh, "train_4k", lr=TP_LR,
+                                param_dtype=torch.float32)
+        lopt = adamw_init(local)
+        before = tp_clone(local)
+        local, lopt, m = fn(local, lopt, batch)
+        out["check"] = tp_step_rels(float(m["loss"]), before, local, lopt,
+                                    want)
+        del before, want
+        out["step_ms"] = tp_timed(fn, local, lopt, batch, dev)
+        if torch.device(dev).type == "cuda":
+            out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out["dprt_launches"] = dprt_kernel_launches()
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def tp_two_ranks(cfg, dev) -> dict:
+    """Spawn the (1, 2) step's two processes (``tp_child``) under
+    TP_CHILD_TIMEOUT_S and read their reports."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix="repro_tp_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.spawn(tp_child, args=(2, port, cfg, dev, out_dir), nprocs=2,
+                   join=False)
+    deadline = time.monotonic() + TP_CHILD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                fail(f"tp: the (1, 2) step's two processes did not finish "
+                     f"within {TP_CHILD_TIMEOUT_S} s")
+    except Exception as e:                 # a rank raised
+        fail(f"tp: a (1, 2) rank failed: {type(e).__name__}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    reports = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+               for r in range(2)]
+    return {"ranks": reports, "wall_s": time.perf_counter() - t0}
+
+
+def tp_trainer_check(cut, dev) -> dict:
+    """Two ``Trainer`` steps at the cut depth on a (1, 1) mesh against no
+    mesh: the same losses and parameters, at a rate that moves every
+    leaf by at least TP_MOVED of its peak."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import Trainer, TrainerConfig
+    root = Path(tempfile.mkdtemp(prefix="repro_tp_trainer_"))
+    outs = {}
+    for name, mesh in (("none", None), ("mesh", make_local_mesh(1, 1))):
+        tcfg = TrainerConfig(batch_size=TRAIN_CHECK_B, seq_len=TRAIN_CHECK_S,
+                             steps=2, ckpt_every=100, log_every=1,
+                             lr=TP_TRAINER_LR, warmup=TP_TRAINER_WARMUP,
+                             ckpt_dir=str(root / name), device=dev)
+        trainer = Trainer(cut, tcfg, mesh=mesh)
+        if mesh is None:
+            before = trainer.init_state()[0]
+        outs[name] = trainer.run()
+    shutil.rmtree(root)
+    moved = tp_moved(before, outs["none"]["params"], "Trainer, no mesh")
+    losses = {k: [m["loss"] for m in v["log"]] for k, v in outs.items()}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                         losses["none"]))
+    p_rel = tp_worst(outs["mesh"]["params"], outs["none"]["params"])
+    if loss_rel > TP_LOSS_REL or p_rel > TP_GRAD_REL:
+        fail(f"tp: Trainer on a (1, 1) mesh: losses {loss_rel:.2e} / "
+             f"parameters {p_rel:.2e} from no mesh")
+    return {"layers": cut.num_layers, "losses": losses["mesh"],
+            "loss_rel": loss_rel, "param_rel": p_rel, "moved_min": moved}
+
+
+def tp_phase() -> dict:
+    """Tensor parallelism on the card, tinyllama-1.1b at full width: the
+    float32 train step (TRAIN_BATCH x TRAIN_SEQ) through
+    ``make_train_step`` on a (1, 1) NCCL mesh equal to the step with no
+    mesh on the same weights and batch, both timed; two ``Trainer``
+    steps at the cut depth on the (1, 1) mesh against no mesh; then the
+    (1, 2) step as two processes on the one card over gloo with CUDA
+    tensors against the one-process step; no K1-K5 launch here or in
+    either rank."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (close_world, init_world,
+                                         mesh_device_type)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device(TP_DEVICE)
+    t_phase = time.perf_counter()
+    reset_dprt_kernel_launches()
+    cfg = get_config(LM_ARCH)
+    model, params, batch = tp_step_inputs(cfg, dev)
+    one, _ = make_train_step(model, None, "train_4k", lr=TP_LR,
+                             param_dtype=torch.float32)
+    p = tp_clone(params)
+    opt = adamw_init(p)
+    p, opt, m = one(p, opt, batch)
+    want = {"loss": float(m["loss"]), "mu": opt["mu"], "nu": opt["nu"]}
+    moved = tp_moved(params, p, "the one-process step")
+    one_rel = tp_worst(p, tp_plain_update(params, opt["mu"], opt["nu"],
+                                          TP_FIRST_LR))
+    if one_rel > TP_GRAD_REL:
+        fail(f"tp: the one-process step is {one_rel:.2e} from the plain "
+             f"update of its own moments")
+    init_world(TP_DEVICE)
+    try:
+        mesh = init_device_mesh(mesh_device_type(), (1, 1),
+                                mesh_dim_names=("data", "model"))
+        fn, _ = make_train_step(model, mesh, "train_4k", lr=TP_LR,
+                                param_dtype=torch.float32)
+        q = tp_clone(params)
+        qopt = adamw_init(q)
+        q, qopt, qm = fn(q, qopt, batch)
+        mesh11 = tp_gate("(1, 1) NCCL mesh", tp_step_rels(
+            float(qm["loss"]), params, q, qopt, want))
+        mesh11["backend"] = torch.distributed.get_backend()
+        mesh11.update(moved_min=moved, one_process_update_rel=one_rel)
+        mesh11["step_ms"] = tp_timed(fn, q, qopt, batch, dev)
+        del q, qopt, qm
+        none_ms = tp_timed(one, p, opt, batch, dev)
+        trainer = tp_trainer_check(lm_cut(cfg), dev)
+    finally:
+        close_world()
+    del params, p, opt, m, want, one, fn
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"tp: {cfg.name} float32 step {TRAIN_BATCH}x{TRAIN_SEQ}: no mesh "
+        f"{none_ms:.3f} ms, (1, 1) {mesh11['backend']} mesh "
+        f"{mesh11['step_ms']:.3f} ms, equal within {json.dumps(mesh11)}; "
+        f"Trainer (1, 1) vs none at {trainer['layers']} layers "
+        f"{json.dumps(trainer)}")
+    two = tp_two_ranks(cfg, TP_DEVICE)
+    checks = [r["check"] for r in two["ranks"]]
+    worst = tp_gate("the (1, 2) step", {
+        k: max(c[k] for c in checks)
+        for k in ("loss_rel", "mu_rel", "nu_rel", "update_rel")})
+    mesh12 = dict(worst, step_ms=[r["step_ms"] for r in two["ranks"]],
+                  peak_mem_bytes=[r.get("peak_mem_bytes")
+                                  for r in two["ranks"]],
+                  dprt_launches=[r["dprt_launches"] for r in two["ranks"]],
+                  wall_s=two["wall_s"])
+    log(f"tp: (1, 2) over gloo, two processes on the one card: step "
+        f"{mesh12['step_ms']} ms by rank, equal to the one-process step "
+        f"within {json.dumps(worst)}")
+    launches = dprt_kernel_launches() + sum(mesh12["dprt_launches"])
+    if launches:
+        fail(f"the tensor-parallel path launched {launches} of K1-K5 "
+             f"(this process and the ranks {mesh12['dprt_launches']})")
+    log("tp: K1-K5 launches 0 (this process and both ranks)")
+    return {"arch": LM_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "none_step_ms": none_ms, "mesh_1x1": mesh11,
+            "trainer_1x1": trainer, "mesh_1x2": mesh12,
+            "dprt_launches": launches, "card": nvidia_smi_line(),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def dryrun_phase(tp: dict) -> dict:
+    """``launch.dryrun.run_cell`` for TP_DRYRUN_CELLS on the 16 x 16
+    production mesh (256 fake ranks, rank 0's structs): counts and
+    roofline predictions for a hypothetical mesh of 256 H100s, printed
+    beside this run's measured one-card step (a different size: not a
+    comparison)."""
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    out = {}
+    for arch, shape in TP_DRYRUN_CELLS:
+        r = run_cell(arch, shape, multi_pod=False, outdir="")
+        if r["status"] != "ok":
+            fail(f"dryrun {arch} {shape}: {r['status']} "
+                 f"{r.get('error', r.get('reason'))}")
+        t = r["roofline"]
+        row = {"mesh": r["mesh"], "chips": r["chips"],
+               "flops_per_dev": r["flops_per_dev"],
+               "bytes_per_dev": r["bytes_per_dev"],
+               "coll_bytes_per_dev": r["collectives"]["total"],
+               "collectives": r["collectives"]["by_class"],
+               "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+               "collective_s": t["collective_s"], "dominant": t["dominant"],
+               "step_s_lower_bound": t["step_s_lower_bound"],
+               "count_s": r["compile_s"]}
+        out[f"{arch}:{shape}"] = row
+        log(f"dryrun {arch} {shape} on {r['mesh']} (counted, predicted for "
+            f"{r['chips']} H100s, not measured): {row['flops_per_dev']:.4e} "
+            f"flop, {row['bytes_per_dev']:.4e} B, "
+            f"{row['coll_bytes_per_dev']:.4e} B all-reduced per device -> "
+            f"{row['step_s_lower_bound']:.4e} s ({row['dominant']}); this "
+            f"run's measured {LM_ARCH} float32 step at {TRAIN_BATCH}x"
+            f"{TRAIN_SEQ} on one card: {tp['none_step_ms']:.3f} ms")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4323,11 +4728,14 @@ def main() -> int:
     lm = lm_phase()
     trained = train_phase()
     cost = cost_phase(lm, trained, kernels[0])
+    tp = tp_phase()
+    tp["dryrun"] = dryrun_phase(tp)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"cost": cost}), flush=True)
+    print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

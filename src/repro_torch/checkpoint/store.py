@@ -140,14 +140,19 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, like_tree, step: Optional[int] = None,
-                       device=None):
+                       device=None, place=None):
     """Restore into the structure of ``like_tree`` (whose leaves may be
     meta tensors: only its keys and shapes are read).
 
     Each leaf comes back as a tensor of the dtype on disk, on ``device``
-    (default: the CPU).  Returns ``(tree, step, extra)``, or ``(None,
-    None, None)`` when there is no checkpoint.
+    (default: the CPU), or as ``place(path, leaf)`` makes it of the leaf
+    read on the host (``path`` as :func:`tree_items` gives it), as soon as
+    it is read: a rank's shard keeps at most one whole leaf on the host.
+    Returns ``(tree, step, extra)``, or ``(None, None, None)`` when there
+    is no checkpoint.
     """
+    if place is not None and device is not None:
+        raise ValueError("give device or place, not both")
     step = latest_step(directory) if step is None else step
     if step is None:
         return None, None, None
@@ -160,8 +165,9 @@ def restore_checkpoint(directory: str, like_tree, step: Optional[int] = None,
     if missing:
         raise ValueError(f"checkpoint at {path} missing keys: "
                          f"{sorted(missing)[:5]}")
+    paths = [p for p, _ in tree_items(like_tree)]
     leaves = []
-    for key, like in flat_like.items():
+    for (key, like), leaf_path in zip(flat_like.items(), paths):
         info = manifest["keys"][key]
         shape = getattr(like, "shape", None)
         if shape is not None and tuple(shape) != tuple(info["shape"]):
@@ -169,7 +175,11 @@ def restore_checkpoint(directory: str, like_tree, step: Optional[int] = None,
                              f"{info['shape']}, the tree needs "
                              f"{tuple(shape)}")
         t = _read_leaf(os.path.join(path, info["file"]), info["dtype"])
-        leaves.append(t.to(device) if device is not None else t)
+        if place is not None:
+            t = place(leaf_path, t)
+        elif device is not None:
+            t = t.to(device)
+        leaves.append(t)
     return (tree_unflatten(like_tree, leaves), manifest["step"],
             manifest.get("extra", {}))
 

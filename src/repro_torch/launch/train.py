@@ -12,8 +12,14 @@ newest checkpoint under ``--ckpt-dir``.
 ``data x model`` mesh over the ranks there are,
 :func:`repro_torch.launch.mesh.make_local_mesh`) or ``DxM``; a mesh joins
 the process group ``torchrun`` describes (one rank otherwise).  The
-trainer is data-parallel over ``data``; a ``model`` axis > 1 raises
-``NotImplementedError``.
+trainer is data-parallel over ``data`` (with ZeRO-1) and
+tensor-parallel over ``model``, e.g. on the CPU::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch tinyllama-1.1b --smoke --mesh local --device cpu
+
+(4 ranks: a (2, 2) mesh).  Every rank prints; the mesh's first rank
+writes the checkpoints.
 """
 from __future__ import annotations
 

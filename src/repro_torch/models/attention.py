@@ -16,6 +16,16 @@ reference's formulation kept (no fused attention kernel):
   ``dynamic_update_slice``) and attends over the valid prefix.
 * MLA (DeepSeek-V2) prefills in expanded form and decodes in the
   absorbed form over the compressed ``c_kv`` / ``k_rope`` cache.
+
+On a mesh's ``model`` axis (``tp``) a layer whose query heads the axis
+divides computes this rank's heads: ``wq`` (MLA: ``q_up`` / ``wq``,
+``k_up``, ``v_up``) column-parallel and ``wo`` row-parallel.  Under GQA
+the rank uses the kv heads its query heads map to -- its own shard of
+``wk`` / ``wv`` where the axis divides the kv heads, else the whole
+weights (gathered where a shard is not whole heads), every kv head
+computed and cached.  MLA's ``lora`` weights and its latent cache stay
+whole on every rank.  A layer whose query heads the axis does not
+divide runs whole on every rank, on its gathered weights.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor as T
 from ..parallel.sharding import shard_act
 from .layers import dense, dense_spec, rmsnorm, rmsnorm_spec, rope
 
@@ -225,11 +236,57 @@ def _positions_2d(positions: torch.Tensor, b: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the split over the model axis
+# ---------------------------------------------------------------------------
+def _kv_use(k, q_heads: slice, kv_heads: slice, g: int):
+    """The kv heads of ``k`` (``kv_heads`` of the layer's) that the query
+    heads ``q_heads`` attend to, as a tensor whose heads group them
+    evenly (GQA): a contiguous slice, or one kv head per query head."""
+    need = [i // g - kv_heads.start for i in range(q_heads.start,
+                                                    q_heads.stop)]
+    lo, hi = need[0], need[-1] + 1
+    n = q_heads.stop - q_heads.start
+    if n % (hi - lo) == 0 and all(
+            j == lo + i // (n // (hi - lo)) for i, j in enumerate(need)):
+        return k[:, :, lo:hi] if (lo, hi) != (0, k.shape[2]) else k
+    return k[:, :, need]
+
+
+class _Split:
+    """How one attention layer splits over ``tp``: ``heads`` whether the
+    axis divides its query heads (then this rank computes ``q`` of them
+    and leaves by a row-parallel ``wo``), ``kv`` the kv heads it
+    computes and caches (its shard, or all)."""
+
+    def __init__(self, cfg, tp, mla: bool = False):
+        h, hkv = cfg.num_heads, (cfg.num_heads if mla else
+                                 cfg.num_kv_heads)
+        self.tp = tp
+        self.heads = T.splits(tp, h)
+        self.q = T.span(tp, h) if self.heads else slice(0, h)
+        self.kv = (T.span(tp, hkv) if self.heads and T.splits(tp, hkv)
+                   else slice(0, hkv))
+        self.g = h // hkv
+
+    def w(self, w, n: int, dim: int, name: str):
+        """A weight of ``n`` along ``dim`` that this rank uses whole
+        (gathered where stored split), entered where the rank uses it
+        in a partial region."""
+        w = T.gather(w, self.tp, dim, n, name)
+        return T.enter(w, self.tp) if self.heads else w
+
+    def shared(self, t):
+        """A value every rank holds whole, used in the partial region."""
+        return T.enter(t, self.tp) if self.heads else t
+
+
+# ---------------------------------------------------------------------------
 # GQA attention block (self / cross / cached decode)
 # ---------------------------------------------------------------------------
 def apply_attention(params, cfg, x, *, positions, causal=True,
                     local: bool = False, cross: bool = False,
-                    cache=None, decode_pos=None, kv_x=None, use_rope=True):
+                    cache=None, decode_pos=None, kv_x=None, use_rope=True,
+                    tp=None):
     """Returns (out, new_cache).
 
     * prefill: ``cache=None`` -> new_cache holds this segment's K/V
@@ -238,32 +295,59 @@ def apply_attention(params, cfg, x, *, positions, causal=True,
       the new K/V are written into ``cache`` in place.
     * cross: ``kv_x`` is the encoder output at prefill (cache stores the
       projected K/V); at decode the cross cache is static.
+    * ``tp``: the model axis (module docstring); the cache holds the kv
+      heads this rank computes.
     """
     b, sq, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     window = cfg.window if local else 0
+    sp = _Split(cfg, tp)
+    if sp.heads:
+        wq, wo = params["wq"], params["wo"]
+        kv_own = sp.kv.stop - sp.kv.start < hkv
+        wk = params["wk"] if kv_own else sp.w(params["wk"], hkv * hd, 1,
+                                              "attn.wk")
+        wv = params["wv"] if kv_own else sp.w(params["wv"], hkv * hd, 1,
+                                              "attn.wv")
+        x = T.enter(x, tp)
+        if kv_x is not None:
+            kv_x = T.enter(kv_x, tp)
+    else:
+        wq, wk, wv = (T.gather(params[n], tp, 1, hh * hd, f"attn.{n}")
+                      for n, hh in (("wq", h), ("wk", hkv), ("wv", hkv)))
+        wo = T.gather(params["wo"], tp, 0, h * hd, "attn.wo")
+    nq = sp.q.stop - sp.q.start
+    nkv = sp.kv.stop - sp.kv.start
 
-    q = dense(x, params["wq"]).reshape(b, sq, h, hd)
+    def attend_kv(k):
+        return _kv_use(k, sp.q, sp.kv, sp.g) if sp.heads else k
+
+    def out_proj(out):
+        out = dense(out.reshape(b, sq, nq * hd), wo)
+        return T.leave(out, tp) if sp.heads else out
+
+    q = dense(x, wq).reshape(b, sq, nq, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        q = rmsnorm(q, sp.shared(params["q_norm"]), cfg.norm_eps)
 
     is_decode = cache is not None and decode_pos is not None
 
     if cross:
         if kv_x is not None:       # prefill: project encoder output once
-            k = dense(kv_x, params["wk"]).reshape(b, -1, hkv, hd)
-            v = dense(kv_x, params["wv"]).reshape(b, -1, hkv, hd)
+            k = dense(kv_x, wk).reshape(b, -1, nkv, hd)
+            v = dense(kv_x, wv).reshape(b, -1, nkv, hd)
             new_cache = {"k": k, "v": v}
         else:                      # decode: static projected cache
             new_cache = cache
             k, v = cache["k"], cache["v"]
-        out = _sdpa(q, k, v, cfg=cfg, q_positions=positions, causal=False)
-        return dense(out.reshape(b, sq, h * hd), params["wo"]), new_cache
+        out = _sdpa(q, attend_kv(k), attend_kv(v), cfg=cfg,
+                    q_positions=positions, causal=False)
+        return out_proj(out), new_cache
 
-    k = dense(x, params["wk"]).reshape(b, sq, hkv, hd)
-    v = dense(x, params["wv"]).reshape(b, sq, hkv, hd)
+    k = dense(x, wk).reshape(b, sq, nkv, hd)
+    v = dense(x, wv).reshape(b, sq, nkv, hd)
     if cfg.qk_norm:
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+        k = rmsnorm(k, sp.shared(params["k_norm"]), cfg.norm_eps)
     if use_rope:
         pos2d = _positions_2d(positions, b)
         q = rope(q, pos2d, cfg.rope_theta)
@@ -276,19 +360,20 @@ def apply_attention(params, cfg, x, *, positions, causal=True,
         kc[:, slot:slot + 1] = k.to(kc.dtype)
         vc[:, slot:slot + 1] = v.to(vc.dtype)
         if window:
-            out = _sdpa_chunked(q, kc, vc, q_positions=positions,
-                                causal=False,
+            out = _sdpa_chunked(q, attend_kv(kc), attend_kv(vc),
+                                q_positions=positions, causal=False,
                                 kv_valid=min(decode_pos + 1, cap),
                                 chunk_kv=cfg.chunk_kv)
         else:
-            out = _sdpa_chunked(q, kc, vc, q_positions=positions,
-                                causal=True, kv_valid=decode_pos + 1,
+            out = _sdpa_chunked(q, attend_kv(kc), attend_kv(vc),
+                                q_positions=positions, causal=True,
+                                kv_valid=decode_pos + 1,
                                 chunk_kv=cfg.chunk_kv)
-        return dense(out.reshape(b, sq, h * hd), params["wo"]), cache
+        return out_proj(out), cache
 
     # prefill
     if local:
-        out = _local_attention(q, k, v, window)
+        out = _local_attention(q, attend_kv(k), attend_kv(v), window)
         # ring-buffer invariant: absolute position p lives at slot p % window
         if sq >= window:
             ring_k = torch.roll(k[:, -window:], sq % window, dims=1)
@@ -298,38 +383,50 @@ def apply_attention(params, cfg, x, *, positions, causal=True,
             ring_v = _pad_seq(v, window - sq)
         new_cache = {"k": ring_k, "v": ring_v}
     else:
-        out = _sdpa(q, k, v, cfg=cfg, q_positions=positions, causal=causal)
+        out = _sdpa(q, attend_kv(k), attend_kv(v), cfg=cfg,
+                    q_positions=positions, causal=causal)
         new_cache = {"k": k, "v": v}
-    out = shard_act(out.reshape(b, sq, h * hd), "batch", "seq", "ffn")
-    return dense(out, params["wo"]), new_cache
+    out = shard_act(out.reshape(b, sq, nq * hd), "batch", "seq", "ffn")
+    return out_proj(out), new_cache
 
 
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2)
 # ---------------------------------------------------------------------------
-def _mla_q(params, cfg, x):
+def _mla_q(params, cfg, x, sp):
     b, sq, _ = x.shape
     h = cfg.num_heads
     qk = cfg.nope_head_dim + cfg.rope_head_dim
     if cfg.q_lora_rank:
         cq = rmsnorm(dense(x, params["q_down"]), params["q_norm"],
                      cfg.norm_eps)
-        q = dense(cq, params["q_up"])
+        q = dense(sp.shared(cq), _mla_w(params["q_up"], sp, h * qk, "q_up"))
     else:
-        q = dense(x, params["wq"])
-    q = q.reshape(b, sq, h, qk)
+        q = dense(sp.shared(x), _mla_w(params["wq"], sp, h * qk, "wq"))
+    q = q.reshape(b, sq, sp.q.stop - sp.q.start, qk)
     return q[..., :cfg.nope_head_dim], q[..., cfg.nope_head_dim:]
 
 
-def apply_mla(params, cfg, x, *, positions, cache=None, decode_pos=None):
-    """Returns (out, new_cache); cache = {c_kv (B,S,r), k_rope (B,S,rd)}."""
+def _mla_w(w, sp, n: int, name: str, dim: int = 1):
+    """A head-split MLA weight: this rank's heads, else whole."""
+    return w if sp.heads else T.gather(w, sp.tp, dim, n, f"mla.{name}")
+
+
+def apply_mla(params, cfg, x, *, positions, cache=None, decode_pos=None,
+              tp=None):
+    """Returns (out, new_cache); cache = {c_kv (B,S,r), k_rope (B,S,rd)}.
+
+    On ``tp`` the compressed projections run whole on every rank and the
+    head-split ones on this rank's heads."""
     b, sq, d = x.shape
     h = cfg.num_heads
     nope, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     scale = (nope + rd) ** -0.5
     pos2d = _positions_2d(positions, b)
+    sp = _Split(cfg, tp, mla=True)
+    nh = sp.q.stop - sp.q.start
 
-    q_nope, q_rope = _mla_q(params, cfg, x)
+    q_nope, q_rope = _mla_q(params, cfg, x, sp)
     q_rope = rope(q_rope, pos2d, cfg.rope_theta)
 
     ckv_full = dense(x, params["kv_down"])
@@ -337,14 +434,21 @@ def apply_mla(params, cfg, x, *, positions, cache=None, decode_pos=None):
                    cfg.norm_eps)
     k_rope = rope(ckv_full[..., cfg.kv_lora_rank:][:, :, None, :],
                   pos2d, cfg.rope_theta)[:, :, 0, :]
+    k_up = _mla_w(params["k_up"], sp, h * nope, "k_up")
+    v_up = _mla_w(params["v_up"], sp, h * vd, "v_up")
+    wo = _mla_w(params["wo"], sp, h * vd, "wo", 0)
+
+    def out_proj(out):
+        out = dense(out, wo)
+        return T.leave(out, tp) if sp.heads else out
 
     if cache is not None and decode_pos is not None:
         ckv_c, kr_c = cache["c_kv"], cache["k_rope"]
         ckv_c[:, decode_pos:decode_pos + 1] = c_kv.to(ckv_c.dtype)
         kr_c[:, decode_pos:decode_pos + 1] = k_rope.to(kr_c.dtype)
         # absorbed decode
-        w_kup = params["k_up"].reshape(cfg.kv_lora_rank, h, nope)
-        w_vup = params["v_up"].reshape(cfg.kv_lora_rank, h, vd)
+        w_kup = k_up.reshape(cfg.kv_lora_rank, nh, nope)
+        w_vup = v_up.reshape(cfg.kv_lora_rank, nh, vd)
         q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope.float(),
                              w_kup.float())
         s = (torch.einsum("bqhl,bsl->bhqs", q_abs, ckv_c.float())
@@ -355,19 +459,20 @@ def apply_mla(params, cfg, x, *, positions, cache=None, decode_pos=None):
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bhqs,bsl->bqhl", p, ckv_c.float())
         out = torch.einsum("bqhl,lhv->bqhv", ctx, w_vup.float())
-        out = out.to(x.dtype).reshape(b, sq, h * vd)
-        return dense(out, params["wo"]), cache
+        out = out.to(x.dtype).reshape(b, sq, nh * vd)
+        return out_proj(out), cache
 
     # prefill: expanded attention
-    k_nope = dense(c_kv, params["k_up"]).reshape(b, sq, h, nope)
-    v = dense(c_kv, params["v_up"]).reshape(b, sq, h, vd)
-    k_rope_b = k_rope[:, :, None, :].expand(b, sq, h, rd)
+    c_in, kr_in = sp.shared(c_kv), sp.shared(k_rope)
+    k_nope = dense(c_in, k_up).reshape(b, sq, nh, nope)
+    v = dense(c_in, v_up).reshape(b, sq, nh, vd)
+    k_rope_b = kr_in[:, :, None, :].expand(b, sq, nh, rd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
     # pad v to qk dim for the shared attention, crop after
     vpad = F.pad(v, (0, nope + rd - vd))
     out = _sdpa(q, k, vpad, cfg=cfg, q_positions=positions,
                 causal=True)[..., :vd]
-    out = out.reshape(b, sq, h * vd)
+    out = out.reshape(b, sq, nh * vd)
     new_cache = {"c_kv": c_kv, "k_rope": k_rope}
-    return dense(out, params["wo"]), new_cache
+    return out_proj(out), new_cache

@@ -1,5 +1,7 @@
 """Transformer-block assembly: pre-norm residual blocks of every family
-(the port of :mod:`repro.models.blocks`)."""
+(the port of :mod:`repro.models.blocks`).  ``tp`` (the mesh's ``model``
+axis, or ``None``) goes to every sublayer; the residual stream and the
+norms stay whole on every rank."""
 from __future__ import annotations
 
 from .attention import apply_attention, apply_mla, attn_specs, mla_specs
@@ -8,7 +10,14 @@ from .moe import apply_moe, moe_specs
 from .rglru import apply_rglru, rglru_cache_shapes, rglru_specs
 from .ssm import apply_mamba, mamba_cache_shapes, mamba_specs
 
-__all__ = ["block_specs", "apply_block", "block_cache_shapes"]
+__all__ = ["block_specs", "apply_block", "block_cache_shapes",
+           "CACHE_MODEL_DIMS"]
+
+#: the dimension of each cache leaf (of one layer, batch first) that the
+#: ``model`` axis splits where it divides it -- kv heads, recurrent and
+#: conv channels, SSM heads; MLA's latent cache stays whole
+#: (``launch/shapes.py:tp_cache_shardings`` places the cache by it)
+CACHE_MODEL_DIMS = {"k": 2, "v": 2, "conv": 2, "h": 1, "ssm": 1}
 
 
 def block_specs(cfg, blk: str, mlp: str, cross: bool = False):
@@ -63,7 +72,7 @@ def block_cache_shapes(cfg, blk: str, cross: bool, batch: int, kv_len: int,
 
 def apply_block(params, cfg, x, blk: str, mlp: str, *, positions,
                 causal: bool = True, cache=None, decode_pos=None,
-                enc_out=None, use_rope: bool = True):
+                enc_out=None, use_rope: bool = True, tp=None):
     """Returns (x, new_cache, aux).  ``cache``/``decode_pos`` given => decode
     (the cache is updated in place); cache None => prefill (new_cache
     still returned)."""
@@ -76,18 +85,18 @@ def apply_block(params, cfg, x, blk: str, mlp: str, *, positions,
         if cfg.is_mla:
             sub, new_self = apply_mla(params["attn"], cfg, h,
                                       positions=positions, cache=self_cache,
-                                      decode_pos=decode_pos)
+                                      decode_pos=decode_pos, tp=tp)
         else:
             sub, new_self = apply_attention(
                 params["attn"], cfg, h, positions=positions, causal=causal,
                 local=(blk == "local_attn"), cache=self_cache,
-                decode_pos=decode_pos, use_rope=use_rope)
+                decode_pos=decode_pos, use_rope=use_rope, tp=tp)
     elif blk == "recurrent":
         sub, new_self = apply_rglru(params["rec"], cfg, h, cache=self_cache,
-                                    decode=decode)
+                                    decode=decode, tp=tp)
     elif blk == "mamba":
         sub, new_self = apply_mamba(params["mamba"], cfg, h,
-                                    cache=self_cache, decode=decode)
+                                    cache=self_cache, decode=decode, tp=tp)
     else:
         raise ValueError(blk)
     x = x + sub
@@ -99,16 +108,17 @@ def apply_block(params, cfg, x, blk: str, mlp: str, *, positions,
             params["cross"], cfg, hx, positions=positions, cross=True,
             cache=cache["cross"] if decode else None,
             decode_pos=decode_pos if decode else None,
-            kv_x=None if decode else enc_out, use_rope=False)
+            kv_x=None if decode else enc_out, use_rope=False, tp=tp)
         x = x + sub
         new_cache["cross"] = new_cross
 
     if mlp == "dense":
         x = x + apply_mlp(params["mlp"],
                           rmsnorm(x, params["ln2"], cfg.norm_eps),
-                          cfg.mlp_act)
+                          cfg.mlp_act, tp, cfg.d_ff)
     elif mlp == "moe":
         sub, aux = apply_moe(params["moe"],
-                             cfg, rmsnorm(x, params["ln2"], cfg.norm_eps))
+                             cfg, rmsnorm(x, params["ln2"], cfg.norm_eps),
+                             tp)
         x = x + sub
     return x, new_cache, aux

@@ -14,6 +14,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..parallel.sharding import param_shardings, shard_params
+from ..tree import tree_map
 from .lm import Model, check_tree
 
 __all__ = ["params_from_reference", "params_to_numpy",
@@ -29,13 +31,16 @@ def _floating(path: str, arr: np.ndarray) -> np.ndarray:
 
 
 def params_from_reference(model: Model, tree, device="cuda",
-                          dtype=None) -> Model:
+                          dtype=None, mesh=None):
     """Load the reference's parameter tree (numpy leaves) into ``model``.
 
     Raises when a leaf is missing or extra, has another shape than the
     model's spec, or is not floating, or when the leaves' dtypes differ.
     ``dtype`` (a torch dtype) casts every leaf; by default each keeps its
-    own (a bfloat16 tree stays bfloat16).
+    own (a bfloat16 tree stays bfloat16).  With ``mesh``, returns this
+    rank's shards of the leaves as a tree (``param_shardings``; each
+    shard its own contiguous tensor) for the entry points' ``params=``,
+    and installs nothing.
     """
     check_tree(tree, model.specs())
     dtypes = set()
@@ -49,12 +54,16 @@ def params_from_reference(model: Model, tree, device="cuda",
         t = torch.from_numpy(np.array(_floating(path, arr)))
         if arr.dtype.name == "bfloat16":
             t = t.to(torch.bfloat16)
-        return t.to(device=device, dtype=dtype)
+        return t if mesh is not None else t.to(device=device, dtype=dtype)
 
     params = one("", tree)
     if len(dtypes) > 1:
         raise TypeError(f"the tree mixes dtypes {sorted(dtypes)}")
-    return model.load_params(params)
+    if mesh is None:
+        return model.load_params(params)
+    shards = shard_params(params, param_shardings(model.specs(), mesh), mesh)
+    return tree_map(lambda t: t.to(device=device, dtype=dtype,
+                                   copy=True).contiguous(), shards)
 
 
 def params_to_numpy(model: Model) -> Dict[str, Any]:

@@ -6,6 +6,13 @@ keep the reference's ``(d_in, d_out)`` layout.  Two conventions to keep:
 ``jax.nn.gelu`` is the tanh approximation by default, so the gelu MLP
 uses ``approximate="tanh"``; RoPE rotates the two halves of a head
 (half-split), not interleaved pairs.
+
+On a mesh's ``model`` axis (``tp``, a :class:`~repro_torch.parallel.
+tensor.AxisGroup`; ``None`` runs the whole layer) each function takes
+this rank's shard of its leaves: the MLP is column-parallel in and
+row-parallel out, the embedding and the unembedding are split over the
+vocabulary, and the cross entropy reduces over it
+(:mod:`repro_torch.parallel.tensor`).
 """
 from __future__ import annotations
 
@@ -14,13 +21,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor as T
 from ..parallel.sharding import ParamSpec, shard_act
 
 __all__ = [
     "rmsnorm", "rmsnorm_spec", "rope", "dense", "dense_spec",
     "mlp_specs", "apply_mlp", "embed_specs", "embed_tokens", "unembed",
     "causal_conv1d_specs", "apply_causal_conv1d", "cross_entropy_loss",
-    "gelu",
+    "gelu", "rmsnorm_split",
 ]
 
 
@@ -36,6 +44,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, n: int, tp,
+                  eps: float = 1e-6):
+    """:func:`rmsnorm` of a last dimension of ``n`` split over ``tp``:
+    ``x`` and ``scale`` hold this rank's channels, and the sum of
+    squares is all-reduced (inside a partial region, so its gradient is
+    summed too)."""
+    xf = x.float()
+    ss = T.enter(T.leave((xf * xf).sum(-1, keepdim=True), tp), tp)
+    out = xf * torch.rsqrt(ss / n + eps)
     return (out * scale.float()).to(x.dtype)
 
 
@@ -89,14 +109,23 @@ def mlp_specs(d_model: int, d_ff: int, act: str = "silu"):
             "w_out": dense_spec(d_ff, d_model, "ffn", "embed")}
 
 
-def apply_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def apply_mlp(params, x: torch.Tensor, act: str = "silu", tp=None,
+              d_ff: int = 0) -> torch.Tensor:
+    """The MLP; where ``tp`` splits ``d_ff``, column-parallel gate / up
+    (or in) projections and a row-parallel down (or out) projection,
+    one ``all_reduce`` forward and one backward."""
+    split = T.splits(tp, d_ff)
+    if split:
+        x = T.enter(x, tp)
     if act == "silu":
         h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
         h = shard_act(h, "batch", "seq", "ffn")
-        return dense(h, params["w_down"])
-    h = gelu(dense(x, params["w_in"]))
-    h = shard_act(h, "batch", "seq", "ffn")
-    return dense(h, params["w_out"])
+        out = dense(h, params["w_down"])
+    else:
+        h = gelu(dense(x, params["w_in"]))
+        h = shard_act(h, "batch", "seq", "ffn")
+        out = dense(h, params["w_out"])
+    return T.leave(out, tp) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -113,14 +142,29 @@ def embed_specs(vocab: int, d_model: int, tie: bool, max_pos: int = 0):
     return s
 
 
-def embed_tokens(params, tokens: torch.Tensor, positions=None):
-    x = F.embedding(tokens, params["embedding"])
+def embed_tokens(params, tokens: torch.Tensor, positions=None, tp=None,
+                 vocab: int = 0):
+    """Token (and learned position) embeddings.  Where ``tp`` splits the
+    table's ``vocab`` rows, each rank looks up the tokens among its rows
+    (zero elsewhere) and the rows are summed by an ``all_reduce``."""
+    table = params["embedding"]
+    if T.splits(tp, vocab):
+        local = tokens - T.span(tp, vocab).start
+        inside = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), table)
+        x = T.leave(x * inside[..., None].to(x.dtype), tp)
+    else:
+        x = F.embedding(tokens, table)
     if positions is not None and "pos_embedding" in params:
         x = x + F.embedding(positions, params["pos_embedding"])
     return shard_act(x, "batch", "seq", "embed")
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, tp=None, vocab: int = 0):
+    """Logits over the (padded) vocabulary; where ``tp`` splits its
+    ``vocab`` columns, this rank's slice (a column-parallel product)."""
+    if T.splits(tp, vocab):
+        x = T.enter(x, tp)
     if "unembed" in params:
         logits = dense(x, params["unembed"])
     else:                                   # tied: x @ E.T
@@ -162,11 +206,29 @@ def apply_causal_conv1d(params, x: torch.Tensor, state=None):
 # loss
 # ---------------------------------------------------------------------------
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None):
-    """Mean next-token cross entropy in f32; labels (B, S) int."""
+                       mask: Optional[torch.Tensor] = None, tp=None,
+                       vocab: int = 0, padded: int = 0):
+    """Mean next-token cross entropy in f32; labels (B, S) int.
+
+    With ``tp`` splitting the ``padded`` vocabulary, ``logits`` is this
+    rank's slice of the columns: the columns at or past ``vocab`` (the
+    padding the reference crops) are masked, and the max, the sum of
+    exponentials and the target's logit are all-reduced over ``tp``."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if T.splits(tp, padded):
+        lo = T.span(tp, padded).start
+        cols = lo + torch.arange(lf.shape[-1], device=lf.device)
+        lf = torch.where(cols < vocab, lf, -torch.inf)
+        top = T.all_max(lf.amax(-1, keepdim=True), tp)
+        sumexp = T.leave(torch.exp(lf - top).sum(-1), tp)
+        logz = top[..., 0] + torch.log(sumexp)
+        local = labels.long() - lo
+        inside = (local >= 0) & (local < lf.shape[-1])
+        gold = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+        gold = T.leave(torch.where(inside, gold[..., 0], 0.0), tp)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

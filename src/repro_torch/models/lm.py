@@ -38,6 +38,16 @@ outputs of the unbatched matrix products (``aten.mm``, the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, and
 ``"none"`` keeps every activation.  The values do not depend on it;
 only the memory does.
+
+**Tensor parallelism.**  Every entry point takes ``tp``, this rank's
+place on the mesh's ``model`` axis (a :class:`~repro_torch.parallel.
+tensor.AxisGroup`; ``None``: the whole model), and then ``params=`` is
+this rank's shards (:func:`~repro_torch.parallel.sharding.shard_params`)
+and a cache this rank's (:meth:`Model.init_cache` with the same
+``tp``).  The layers split their work over the axis themselves; the
+embedding, the logits and the loss are split over the vocabulary.
+``forward``, ``prefill`` and ``decode_step`` return the whole logits on
+every rank; ``loss`` is the same value on every rank.
 """
 from __future__ import annotations
 
@@ -49,9 +59,11 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel import tensor as T
 from ..parallel.sharding import ParamSpec, shard_act, stack_specs
 from ..tree import tree_map
-from .blocks import apply_block, block_cache_shapes, block_specs
+from .blocks import (CACHE_MODEL_DIMS, apply_block, block_cache_shapes,
+                     block_specs)
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, embed_specs, embed_tokens, rmsnorm,
                      rmsnorm_spec, unembed)
@@ -231,7 +243,7 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # encoder (whisper-style; stub embeddings in, contextual states out)
     # ------------------------------------------------------------------
-    def _encode(self, params, audio_embed):
+    def _encode(self, params, audio_embed, tp=None):
         cfg = self.cfg
         positions = torch.arange(audio_embed.shape[1], dtype=torch.int32,
                                  device=audio_embed.device)
@@ -239,7 +251,7 @@ class Model(nn.Module):
         def layer(pg, x):
             return apply_block(pg, cfg, x, "attn", "dense",
                                positions=positions, causal=False,
-                               use_rope=False)[0]
+                               use_rope=False, tp=tp)[0]
 
         layer = _remat(layer, cfg.remat)
         x = audio_embed
@@ -250,23 +262,25 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # embedding / input munging
     # ------------------------------------------------------------------
-    def _embed(self, params, batch, positions):
+    def _embed(self, params, batch, positions, tp=None):
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"],
-                         positions=positions if cfg.learned_pos else None)
+                         positions=positions if cfg.learned_pos else None,
+                         tp=tp, vocab=cfg.padded_vocab)
         if cfg.frontend == "patch_stub" and "patch_embed" in batch:
             p = batch["patch_embed"].to(x.dtype)       # (B, P, D)
             x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
         enc_out = None
         if cfg.encoder_layers and "audio_embed" in batch:
-            enc_out = self._encode(params, batch["audio_embed"])
+            enc_out = self._encode(params, batch["audio_embed"], tp)
         return shard_act(x, "batch", "seq", "embed"), enc_out
 
     # ------------------------------------------------------------------
     # layer stacks
     # ------------------------------------------------------------------
     def _run_stack(self, params, x, positions, *, causal=True, cache=None,
-                   decode_pos=None, enc_out=None, collect_cache=False):
+                   decode_pos=None, enc_out=None, collect_cache=False,
+                   tp=None):
         aux = 0.0
         new_cache: Dict[str, Any] = {}
         decode = cache is not None and decode_pos is not None
@@ -275,7 +289,8 @@ class Model(nn.Module):
             return apply_block(pblock, self.cfg, x, *kinds,
                                positions=positions, causal=causal, cache=c,
                                decode_pos=decode_pos if decode else None,
-                               enc_out=enc_out, use_rope=self.use_rope)
+                               enc_out=enc_out, use_rope=self.use_rope,
+                               tp=tp)
 
         def run_ids(part, ids, x, aux):
             new_cache[part] = {}
@@ -326,75 +341,106 @@ class Model(nn.Module):
     def _tree(self, params):
         return self.param_tree() if params is None else params
 
-    def forward(self, batch, params=None):
-        """-> (logits (B,S,V), aux).  Training / teacher-forced eval."""
+    def _hidden(self, params, batch, tp):
+        """The final-normed hidden states (B, S, D) and the MoE aux."""
         cfg = self.cfg
-        params = self._tree(params)
         s = batch["tokens"].shape[1]
         dev = batch["tokens"].device
         positions = torch.arange(s, dtype=torch.int32, device=dev)
-        x, enc_out = self._embed(params, batch, positions)
-        x, _, aux = self._run_stack(params, x, positions, enc_out=enc_out)
+        x, enc_out = self._embed(params, batch, positions, tp)
+        x, _, aux = self._run_stack(params, x, positions, enc_out=enc_out,
+                                    tp=tp)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = unembed(params["embed"], x)[..., :cfg.vocab_size]
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=dev) + aux
+        return x, torch.zeros((), dtype=torch.float32, device=dev) + aux
 
-    def loss(self, batch, aux_weight: float = 0.01, params=None):
-        """-> (ce + aux_weight * aux, {"ce", "aux"})."""
-        logits, aux = self.forward(batch, params)
-        ce = cross_entropy_loss(logits, batch["labels"],
-                                batch.get("loss_mask"))
+    def _logits(self, params, x, tp):
+        """The whole logits (B, S, vocab_size) on every rank (on ``tp``,
+        each rank's vocabulary slice gathered)."""
+        cfg = self.cfg
+        logits = unembed(params["embed"], x, tp, cfg.padded_vocab)
+        logits = T.gather(logits, tp, -1, cfg.padded_vocab, "logits")
+        return logits[..., :cfg.vocab_size]
+
+    def forward(self, batch, params=None, tp=None):
+        """-> (logits (B,S,V), aux).  Training / teacher-forced eval."""
+        params = self._tree(params)
+        x, aux = self._hidden(params, batch, tp)
+        return self._logits(params, x, tp), aux
+
+    def loss(self, batch, aux_weight: float = 0.01, params=None, tp=None):
+        """-> (ce + aux_weight * aux, {"ce", "aux"}).  On ``tp`` the cross
+        entropy is vocabulary-parallel: no rank holds the whole logits."""
+        cfg = self.cfg
+        if T.splits(tp, cfg.padded_vocab):
+            params = self._tree(params)
+            x, aux = self._hidden(params, batch, tp)
+            ce = cross_entropy_loss(
+                unembed(params["embed"], x, tp, cfg.padded_vocab),
+                batch["labels"], batch.get("loss_mask"), tp,
+                cfg.vocab_size, cfg.padded_vocab)
+        else:
+            logits, aux = self.forward(batch, params, tp)
+            ce = cross_entropy_loss(logits, batch["labels"],
+                                    batch.get("loss_mask"))
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     @torch.inference_mode()
-    def prefill(self, batch, max_len: Optional[int] = None, params=None):
+    def prefill(self, batch, max_len: Optional[int] = None, params=None,
+                tp=None):
         """-> (last-position logits (B,1,V), cache sized for ``max_len``)."""
         cfg = self.cfg
         params = self._tree(params)
         b, s = batch["tokens"].shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=batch["tokens"].device)
-        x, enc_out = self._embed(params, batch, positions)
+        x, enc_out = self._embed(params, batch, positions, tp)
         x, cache, _ = self._run_stack(params, x, positions, enc_out=enc_out,
-                                      collect_cache=True)
+                                      collect_cache=True, tp=tp)
         x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-        logits = unembed(params["embed"], x)[..., :cfg.vocab_size]
+        logits = self._logits(params, x, tp)
         if max_len is not None and max_len > s:
             leaf = params["final_norm"]
             full = self.init_cache(b, max_len,
                                    enc_len=(enc_out.shape[1]
                                             if enc_out is not None else 0),
-                                   dtype=leaf.dtype, device=leaf.device)
+                                   dtype=leaf.dtype, device=leaf.device,
+                                   tp=tp)
             cache = _merge_cache(full, cache)
         return logits, cache
 
     @torch.inference_mode()
-    def decode_step(self, cache, tokens, pos: int, params=None):
+    def decode_step(self, cache, tokens, pos: int, params=None, tp=None):
         """tokens (B,1), pos an int -> (logits (B,1,V), cache).  The cache
         is updated in place (the reference donates it) and returned."""
-        cfg = self.cfg
         params = self._tree(params)
         pos = int(pos)
         positions = torch.arange(pos, pos + 1, dtype=torch.int32,
                                  device=tokens.device)
-        x, _ = self._embed(params, {"tokens": tokens}, positions)
+        x, _ = self._embed(params, {"tokens": tokens}, positions, tp)
         x, new_cache, _ = self._run_stack(params, x, positions, cache=cache,
-                                          decode_pos=pos)
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = unembed(params["embed"], x)[..., :cfg.vocab_size]
-        return logits, new_cache
+                                          decode_pos=pos, tp=tp)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._logits(params, x, tp), new_cache
 
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
-    def cache_shapes(self, batch: int, max_len: int, enc_len: int = 0):
+    def cache_shapes(self, batch: int, max_len: int, enc_len: int = 0,
+                     tp=None):
+        """The cache tree's shapes; on ``tp`` this rank's (the dimensions
+        of ``CACHE_MODEL_DIMS`` the axis divides, split)."""
         cfg = self.cfg
         enc_len = enc_len or (cfg.encoder_seq if cfg.encoder_layers else 0)
 
+        def local(name, sh):
+            dim = CACHE_MODEL_DIMS.get(name)
+            if dim is None or not T.splits(tp, sh[dim]):
+                return sh
+            return sh[:dim] + (sh[dim] // tp.size,) + sh[dim + 1:]
+
         def one(blk):
-            return block_cache_shapes(cfg, blk, self.cross, batch, max_len,
-                                      enc_len)
+            return _map_shapes(local, block_cache_shapes(
+                cfg, blk, self.cross, batch, max_len, enc_len))
 
         tree: Dict[str, Any] = {}
         if self.prefix_ids:
@@ -411,17 +457,17 @@ class Model(nn.Module):
         return tree
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
-                   dtype=None, device=None):
+                   dtype=None, device=None, tp=None):
         """Zero caches: ``h`` / ``ssm`` leaves float32, the others
         ``dtype`` (default: the parameters' dtype), on ``device``
-        (default: the parameters' device)."""
+        (default: the parameters' device); on ``tp`` this rank's."""
         dtype = dtype or self._param().dtype
         device = device or self._param().device
         return _map_shapes(
             lambda name, sh: torch.zeros(
                 sh, dtype=torch.float32 if name in ("h", "ssm") else dtype,
                 device=device),
-            self.cache_shapes(batch, max_len, enc_len))
+            self.cache_shapes(batch, max_len, enc_len, tp))
 
 
 def _merge_cache(full, prefill):

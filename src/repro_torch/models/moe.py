@@ -8,6 +8,12 @@ changes which tokens a full expert drops); choices past the capacity go
 to one extra drop row of the (E*C + 1, D) buffer (``index_add_``) and
 are dropped; the experts run as batched SwiGLU products; the kept
 outputs are combined with their gates.  Emits the load-balance loss.
+
+On a mesh's ``model`` axis (``tp``) that divides the experts, each rank
+holds E/M of them: the router is whole and the dispatch (routing,
+capacity, slots) is computed identically on every rank, each rank fills
+and runs the slots of its own experts, and the combine is summed by one
+``all_reduce``.  Shared experts are a column- / row-parallel MLP.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor as T
 from ..parallel.sharding import ParamSpec, shard_act
 from .layers import dense, mlp_specs, apply_mlp
 
@@ -33,7 +40,7 @@ def moe_specs(cfg):
     return s
 
 
-def apply_moe(params, cfg, x):
+def apply_moe(params, cfg, x, tp=None):
     """x: (B, S, D) -> (out, aux_loss).
 
     ``cfg.moe_dispatch`` 'grouped' pools capacity per data-parallel shard;
@@ -41,10 +48,11 @@ def apply_moe(params, cfg, x):
     'global', as in the reference.
     """
     b, s, d = x.shape
-    out, aux = _moe_tokens(params, cfg, x.reshape(b * s, d))
+    out, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp)
     out = out.reshape(b, s, d)
     if cfg.shared_experts:
-        out = out + apply_mlp(params["shared"], x, "silu")
+        out = out + apply_mlp(params["shared"], x, "silu", tp,
+                              cfg.shared_experts * cfg.moe_d_ff)
     return out.to(x.dtype), aux
 
 
@@ -55,7 +63,7 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_tokens(params, cfg, xf):
+def _moe_tokens(params, cfg, xf, tp=None):
     """Route/dispatch/compute/combine for a flat (T, D) token block."""
     t, d = xf.shape
     k = cfg.experts_per_token
@@ -81,9 +89,21 @@ def _moe_tokens(params, cfg, xf):
     slot = torch.where(keep, fe * cap + pos, e * cap)
 
     tok = ar // k
-    dispatched = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+    weights = gate.reshape(-1) * keep.to(gate.dtype)
+    split = T.splits(tp, e)
+    if split:            # this rank's experts' slots; the rest to the drop row
+        span = T.span(tp, e)
+        e_loc = span.stop - span.start
+        mine = keep & (fe >= span.start) & (fe < span.stop)
+        slot = torch.where(mine, slot - span.start * cap, e_loc * cap)
+        weights = T.enter(weights, tp) * mine.to(gate.dtype)
+        xf = T.enter(xf, tp)
+    else:
+        e_loc = e
+    dispatched = torch.zeros((e_loc * cap + 1, d), dtype=xf.dtype,
+                             device=dev)
     dispatched.index_add_(0, slot, xf[tok])
-    hidden = dispatched[:e * cap].reshape(e, cap, d)
+    hidden = dispatched[:e_loc * cap].reshape(e_loc, cap, d)
     hidden = shard_act(hidden, "experts", "expert_cap", "embed")
 
     h = (F.silu(torch.bmm(hidden, params["w_gate"]))
@@ -91,10 +111,12 @@ def _moe_tokens(params, cfg, xf):
     ho = torch.bmm(h, params["w_down"])
     ho = shard_act(ho, "experts", "expert_cap", "embed")
 
-    flat = torch.cat([ho.reshape(e * cap, d), ho.new_zeros((1, d))], dim=0)
-    weights = gate.reshape(-1) * keep.to(gate.dtype)
+    flat = torch.cat([ho.reshape(e_loc * cap, d), ho.new_zeros((1, d))],
+                     dim=0)
     out_k = flat[slot] * weights[:, None].to(flat.dtype)
     out = out_k.reshape(t, k, d).sum(dim=1)
+    if split:
+        out = T.leave(out, tp)
 
     # Switch-style load-balance loss
     counts = torch.zeros((e,), dtype=torch.float32, device=dev)

@@ -7,12 +7,21 @@ ceil(log2 S) steps of whole-tensor ops.  The carried state is injected
 into the first step, as the reference does.  The closed form
 ``cumprod(a) * cumsum(x / cumprod(a))`` is not used: the products of
 ``a`` underflow and the division blows up.
+
+On a mesh's ``model`` axis (``tp``) that divides the gate blocks, each
+rank computes its blocks' channels: ``w_x`` / ``w_y`` column-parallel,
+the block-diagonal gates by block, the convolution, ``a_param`` and the
+biases by channel, the recurrence on its channels and a row-parallel
+``w_out``.  Where the axis does not divide the blocks (a shard would
+not be whole blocks) the layer runs whole on every rank, on its
+gathered weights, and keeps its block of the cache.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor as T
 from ..parallel.sharding import ParamSpec, shard_act
 from .layers import (apply_causal_conv1d, causal_conv1d_specs, dense,
                      dense_spec, gelu)
@@ -70,8 +79,30 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def apply_rglru(params, cfg, x, cache=None, decode: bool = False):
+# leaves split over the recurrent width: (name, dimension of the width)
+_WIDTH_DIMS = (("w_x", 1), ("w_y", 1), ("b_rg", 0), ("b_ig", 0),
+               ("a_param", 0), ("w_out", 0), ("conv_w", 1), ("conv_b", 0))
+
+
+def apply_rglru(params, cfg, x, cache=None, decode: bool = False, tp=None):
     """x: (B,S,D) -> (out, new_cache={conv, h})."""
+    if tp is None or tp.size == 1:
+        return _rglru(params, cfg, x, cache, decode)
+    w = cfg.lru_width or cfg.d_model
+    if T.splits(tp, max(cfg.num_heads, 1)):
+        out, new = _rglru(params, cfg, T.enter(x, tp), cache, decode)
+        return T.leave(out, tp), new
+    params = dict(params, **{k: T.gather(params[k], tp, dim, w, f"rec.{k}")
+                             for k, dim in _WIDTH_DIMS})
+    if cache is not None:
+        cache = {"conv": T.gather(cache["conv"], tp, 2, w, "cache.conv"),
+                 "h": T.gather(cache["h"], tp, 1, w, "cache.h")}
+    out, new = _rglru(params, cfg, x, cache, decode)
+    return out, {"conv": T.shard(new["conv"], tp, 2),
+                 "h": T.shard(new["h"], tp, 1)}
+
+
+def _rglru(params, cfg, x, cache, decode):
     b, s, d = x.shape
     xb = dense(x, params["w_x"])
     yb = gelu(dense(x, params["w_y"]))

@@ -4,6 +4,20 @@ The port of :mod:`repro.models.ssm`: the chunked SSD scan (the
 reference's ``lax.scan`` over chunks is a loop here), padding the last
 chunk with ``dt = 0`` steps, which decay by exp(0) and add nothing, and
 the one-step decode.
+
+On a mesh's ``model`` axis (``tp``) that divides the SSM heads, each rank
+computes its heads: its columns of ``z``, ``x`` and ``dt`` and the
+shared ``B`` / ``C`` columns of ``in_proj``, the causal convolution on
+those channels, the gated norm over the split ``inner`` dimension (the
+sum of squares all-reduced) and a row-parallel ``out_proj``.  The stored
+shard of ``in_proj`` (and of the convolution) is a contiguous block of
+the concatenated z | x | B | C | dt columns, which is not whole heads,
+so those leaves are gathered before use.  The conv state is stored as
+``launch/shapes.py:cache_shardings`` splits it (a contiguous block of
+the x | B | C channels): a decode step gathers it whole, and the new
+state is put together from every rank's channels before the rank keeps
+its block.  Where the axis does not divide the heads the layer runs
+whole on every rank, on its gathered weights.
 """
 from __future__ import annotations
 
@@ -12,9 +26,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor as T
 from ..parallel.sharding import ParamSpec, shard_act
 from .layers import (apply_causal_conv1d, causal_conv1d_specs, dense,
-                     dense_spec, rmsnorm)
+                     dense_spec, rmsnorm, rmsnorm_split)
 
 __all__ = ["mamba_specs", "apply_mamba", "mamba_cache_shapes"]
 
@@ -96,8 +111,36 @@ def _ssd_chunked(xs, dt, a, bm, cm, chunk: int):
     return y.to(xs.dtype), st
 
 
-def apply_mamba(params, cfg, x, cache=None, decode: bool = False):
+def _widths(cfg):
+    din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    return din, din + 2 * g * n, 2 * din + 2 * g * n + h
+
+
+def apply_mamba(params, cfg, x, cache=None, decode: bool = False, tp=None):
     """x: (B,S,D). Returns (out, new_cache)."""
+    if T.splits(tp, cfg.ssm_heads):
+        return _mamba_split(params, cfg, x, cache, decode, tp)
+    if tp is not None and tp.size > 1:      # the whole layer on every rank
+        din, conv_ch, width = _widths(cfg)
+        params = dict(params,
+                      **{k: T.gather(params[k], tp, dim, size, f"mamba.{k}")
+                         for k, dim, size in (("in_proj", 1, width),
+                                              ("conv_w", 1, conv_ch),
+                                              ("conv_b", 0, conv_ch),
+                                              ("norm", 0, din),
+                                              ("out_proj", 0, din))})
+        if cache is not None:
+            cache = {"conv": T.gather(cache["conv"], tp, 2, conv_ch,
+                                      "cache.conv"),
+                     "ssm": T.gather(cache["ssm"], tp, 1, cfg.ssm_heads,
+                                     "cache.ssm")}
+        out, new = _mamba_whole(params, cfg, x, cache, decode)
+        return out, {"conv": T.shard(new["conv"], tp, 2),
+                     "ssm": T.shard(new["ssm"], tp, 1)}
+    return _mamba_whole(params, cfg, x, cache, decode)
+
+
+def _mamba_whole(params, cfg, x, cache, decode):
     b, s, d = x.shape
     din, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
@@ -142,3 +185,88 @@ def apply_mamba(params, cfg, x, cache=None, decode: bool = False):
     y = shard_act(y, "batch", "seq", "inner")
     out = dense(y, params["out_proj"])
     return out, {"conv": new_conv, "ssm": new_ssm.float()}
+
+
+def _mamba_split(params, cfg, x, cache, decode, tp):
+    """:func:`apply_mamba` on this rank's heads (module docstring)."""
+    b, s, d = x.shape
+    din, conv_ch, width = _widths(cfg)
+    g, n, p = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    heads = T.span(tp, cfg.ssm_heads)
+    h = heads.stop - heads.start
+    dl = h * p                                  # this rank's d_inner
+    c0 = heads.start * p                        # its first channel
+    rep = cfg.ssm_heads // g
+
+    def whole(name, dim, size):
+        return T.enter(T.gather(params[name], tp, dim, size,
+                                f"mamba.{name}"), tp)
+
+    w_in = whole("in_proj", 1, width)
+    cols = torch.cat([torch.arange(c0, c0 + dl),               # z
+                      torch.arange(din + c0, din + c0 + dl),   # x
+                      torch.arange(2 * din, 2 * din + 2 * g * n),  # B, C
+                      2 * din + 2 * g * n + torch.arange(heads.start,
+                                                         heads.stop)])
+    cols = cols.to(w_in.device)
+    chans = cols[dl:dl + dl + 2 * g * n] - din      # x | B | C channels
+    x = T.enter(x, tp)
+    zxbcdt = dense(x, w_in.index_select(1, cols))
+    z = zxbcdt[..., :dl]
+    xbc = zxbcdt[..., dl:2 * dl + 2 * g * n]
+    dt_raw = zxbcdt[..., 2 * dl + 2 * g * n:]
+
+    conv = {"conv_w": whole("conv_w", 1, conv_ch).index_select(1, chans),
+            "conv_b": whole("conv_b", 0, conv_ch).index_select(0, chans)}
+    conv_state = None
+    if cache is not None:
+        conv_state = T.gather(cache["conv"], tp, 2, conv_ch,
+                              "cache.conv").index_select(2, chans)
+    xbc, new_conv = apply_causal_conv1d(conv, xbc, conv_state)
+    xbc = F.silu(xbc)
+
+    xs = xbc[..., :dl].reshape(b, s, h, p)
+    bm = xbc[..., dl:dl + g * n].reshape(b, s, g, n)
+    cm = xbc[..., dl + g * n:].reshape(b, s, g, n)
+    # the B / C group of each of this rank's heads
+    grp = torch.arange(heads.start, heads.stop, device=x.device) // rep
+    bm = bm.index_select(2, grp)
+    cm = cm.index_select(2, grp)
+    dt_bias = T.enter(params["dt_bias"], tp)[heads]
+    a_log = T.enter(params["A_log"], tp)[heads]
+    d_skip = T.enter(params["D_skip"], tp)[heads]
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())
+
+    if decode:
+        st = cache["ssm"].float()                        # (B,H,N,P)
+        da = torch.exp(dt[:, 0] * a)                     # (B,H)
+        upd = torch.einsum("bh,bhn,bhp->bhnp", dt[:, 0],
+                           bm[:, 0].float(), xs[:, 0].float())
+        st = st * da[:, :, None, None] + upd
+        y = torch.einsum("bhn,bhnp->bhp", cm[:, 0].float(), st)
+        y = y[:, None].to(x.dtype)                       # (B,1,H,P)
+        new_ssm = st
+    else:
+        y, new_ssm = _ssd_chunked(xs, dt, a, bm, cm, cfg.ssm_chunk)
+
+    y = y + d_skip.to(x.dtype)[None, None, :, None] * xs.to(x.dtype)
+    y = y.reshape(b, s, dl)
+    # the axis divides the heads, so norm and out_proj hold this rank's
+    # channels
+    y = rmsnorm_split(y * F.silu(z.float()).to(y.dtype), params["norm"],
+                      din, tp, cfg.norm_eps)
+    y = shard_act(y, "batch", "seq", "inner")
+    out = T.leave(dense(y, params["out_proj"]), tp)
+    if cache is None and torch.is_grad_enabled():
+        # a training pass: no caller keeps the state, so it is not put
+        # together (no collective for it)
+        return out, {"conv": new_conv, "ssm": new_ssm.float()}
+    # the conv state whole from every rank's channels (B and C from the
+    # first rank), then this rank's block of it as the cache stores it
+    full = new_conv.new_zeros(new_conv.shape[:2] + (conv_ch,))
+    keep = new_conv if tp.rank == 0 else torch.cat(
+        [new_conv[..., :dl], torch.zeros_like(new_conv[..., dl:])], -1)
+    full.index_copy_(2, chans, keep)
+    full = T.leave(full, tp)
+    return out, {"conv": T.shard(full, tp, 2), "ssm": new_ssm.float()}

@@ -8,6 +8,11 @@ tree`).  The reference's jitted step donates its parameters and
 moments; :func:`adamw_update` instead updates them in place and returns
 the same tensors, so a caller that keeps an old tree must clone it.
 
+:class:`ModelShards` runs AdamW on a rank's shards under tensor
+parallelism: the global norm sums the squares of the split leaves over
+the ``model`` group and counts each whole (replicated) leaf once; every
+other step of the update is elementwise on the local shard.
+
 :func:`value_and_grad` stands in for ``jax.value_and_grad``: it runs a
 loss on detached copies of the parameter leaves that require grad (the
 leaves share storage; nothing is copied) and returns the gradients as a
@@ -22,12 +27,14 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from ..parallel import tensor as T
 from ..parallel.sharding import mesh_axis_sizes
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_abstract", "adamw_update",
            "cosine_schedule", "global_norm", "zero1_shardings",
-           "accumulate_grads", "value_and_grad", "Zero1"]
+           "accumulate_grads", "value_and_grad", "Zero1", "ModelShards",
+           "model_shards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +61,45 @@ def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The 2-norm over every leaf, accumulated in float32."""
+@dataclasses.dataclass
+class ModelShards:
+    """Which leaves (in the order of ``tree_leaves``) the ``model`` axis
+    splits, and its group: a split leaf holds this rank's shard, a whole
+    one is the same on every rank."""
+    split: list
+    tp: object
+
+
+def model_shards(shardings, tp) -> Optional[ModelShards]:
+    """:class:`ModelShards` from a tree of specs (``param_shardings``;
+    a spec is a tuple, so the tree is walked here), ``None`` without a
+    model axis of more than one rank."""
+    if tp is None or tp.size == 1:
+        return None
+    split = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):           # the order of tree_leaves
+                walk(t[k])
+        else:
+            split.append(any(a == "model" or (isinstance(a, tuple)
+                                              and "model" in a) for a in t))
+
+    walk(shardings)
+    return ModelShards(split, tp)
+
+
+def global_norm(tree, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The 2-norm over every leaf, accumulated in float32; with
+    ``shards``, over the whole leaves the ranks' shards make up."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if shards is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    zero = leaves[0].new_zeros(())
+    split = sum((x for x, s in zip(leaves, shards.split) if s), zero)
+    whole = sum((x for x, s in zip(leaves, shards.split) if not s), zero)
+    return torch.sqrt(T.leave(split, shards.tp) + whole)
 
 
 def adamw_init(params):
@@ -110,7 +152,8 @@ class Zero1:
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig,
                  lr_schedule: Optional[Callable] = None,
-                 zero1: Optional[Zero1] = None):
+                 zero1: Optional[Zero1] = None,
+                 shards: Optional[ModelShards] = None):
     """Returns ``(params, state, {"grad_norm", "lr"})``.
 
     The gradient is clipped to a global norm of ``cfg.clip_norm``; the
@@ -118,10 +161,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     and the new parameter is cast back to its dtype.  The parameters and
     moments are updated in place.  With ``zero1``, each rank's moments
     are its slices (:class:`Zero1`) and ``grads`` the whole (averaged)
-    gradients.
+    gradients.  With ``shards`` the leaves are this rank's shards over
+    the ``model`` axis (:class:`ModelShards`; ZeRO-1 then slices each
+    shard).
     """
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_schedule(step) if lr_schedule else cfg.lr

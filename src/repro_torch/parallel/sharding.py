@@ -14,10 +14,16 @@ axis name, or a tuple of names.  A mesh is anything with
 or an :class:`AbstractMesh` where only the axis sizes matter (specs,
 dry runs) -- and the spec functions read only those.
 
+On a mesh each process is one rank.  :func:`mesh_groups` gives its
+place on the ``data`` axes (``pod`` folded in, as ``LOGICAL_RULES
+["batch"]`` does) and on ``model``; :func:`shard_params` takes the
+rank's shard of each whole leaf by its spec and :func:`gather_params`
+puts the whole leaves back together on the host.  The layers split
+their work over ``model`` themselves (:mod:`repro_torch.parallel.
+tensor`), and each data rank holds its own rows of the batch, so
 :func:`shard_act` is the identity on values, mesh or not: the reference
 uses it to constrain GSPMD's layout of activations, and the port has no
-compiler to constrain -- its data-parallel trainer
-(:mod:`repro_torch.runtime.trainer`) places each rank's rows itself.
+compiler to constrain.
 """
 from __future__ import annotations
 
@@ -28,13 +34,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .tensor import AxisGroup
 
 __all__ = [
     "ParamSpec", "LOGICAL_RULES", "AbstractMesh", "mesh_axis_sizes",
     "logical_to_pspec", "param_pspecs", "prune_pspec", "param_shardings",
     "init_params", "abstract_params", "stack_specs", "shard_act",
-    "activate_mesh", "active_mesh", "data_parallel", "count_params",
-    "map_specs",
+    "activate_mesh", "active_mesh", "MeshGroups", "mesh_groups",
+    "shard_leaf", "shard_params", "gather_params", "local_shape",
+    "count_params", "map_specs",
 ]
 
 # logical axis -> mesh axis (None = replicated).  DP batch over pod+data,
@@ -91,24 +101,161 @@ def mesh_axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def data_parallel(mesh):
-    """``(group, rank, size)`` of this process on the mesh's ``data``
-    axis -- ``group`` is ``None`` where the axis has one rank, or there
-    is no mesh.  The port's training is data-parallel only: any other
-    axis of size > 1 raises ``NotImplementedError`` (tensor parallelism,
-    a ``model`` axis > 1, is not ported)."""
-    if mesh is None:
-        return None, 0, 1
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """This rank's groups on a mesh: ``data`` (the batch's axes, ``pod``
+    and ``data`` flattened), ``zero`` (the ``data`` axis alone, over
+    which ``zero1_shardings`` slices the AdamW moments) and ``model``."""
+    data: AxisGroup
+    zero: AxisGroup
+    model: AxisGroup
+
+
+_ONE = AxisGroup(None, 0, 1)
+_MESH_AXES = ("pod", "data", "model")
+
+
+def _axis_group(mesh, axes) -> AxisGroup:
     sizes = mesh_axis_sizes(mesh)
-    other = {a: n for a, n in sizes.items() if a != "data" and n > 1}
+    axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if not axes:
+        return _ONE
+    size = int(np.prod([sizes[a] for a in axes]))
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    if len(axes) > 1:
+        sub = sub._flatten()
+    group = sub.get_group()
+    if dist.get_world_size(group) != size:
+        raise RuntimeError(f"mesh axes {axes} of {size} ranks; their "
+                           f"process group has {dist.get_world_size(group)}")
+    return AxisGroup(group, sub.get_local_rank(), size)
+
+
+def mesh_groups(mesh) -> MeshGroups:
+    """This process's :class:`MeshGroups` on ``mesh`` (every group of one
+    rank without a mesh).
+
+    Raises ``ValueError`` for an axis other than ``pod``, ``data`` and
+    ``model`` of size > 1, and for an axis of size > 1 on a mesh with no
+    process group behind it (an :class:`AbstractMesh`); a group whose
+    size differs from its axis's raises ``RuntimeError``."""
+    if mesh is None:
+        return MeshGroups(_ONE, _ONE, _ONE)
+    sizes = mesh_axis_sizes(mesh)
+    other = {a: n for a, n in sizes.items() if a not in _MESH_AXES and n > 1}
     if other:
-        raise NotImplementedError(
-            f"training on mesh axes {other}: tensor-parallel training (a "
-            f"model axis > 1) is not ported")
-    size = sizes.get("data", 1)
-    if size == 1:
-        return None, 0, 1
-    return mesh.get_group("data"), mesh.get_local_rank("data"), size
+        raise ValueError(f"mesh axes {other}: the port runs on pod, data "
+                         f"and model axes only")
+    wide = {a: n for a, n in sizes.items() if n > 1}
+    if wide and not hasattr(mesh, "get_group"):
+        raise ValueError(f"mesh axes {wide} (model axis "
+                         f"{sizes.get('model', 1)}) on a mesh with no "
+                         f"process group: open one and build a DeviceMesh")
+    return MeshGroups(data=_axis_group(mesh, ("pod", "data")),
+                      zero=_axis_group(mesh, ("data",)),
+                      model=_axis_group(mesh, ("model",)))
+
+
+def _coords(mesh, coords) -> Dict[str, int]:
+    """Each axis's index of this rank (``coords`` overrides; an
+    :class:`AbstractMesh` is at index 0 of each axis)."""
+    sizes = mesh_axis_sizes(mesh)
+    if coords is not None:
+        return {a: int(coords.get(a, 0)) for a in sizes}
+    if not hasattr(mesh, "get_local_rank"):
+        return {a: 0 for a in sizes}
+    return {a: (mesh.get_local_rank(a) if n > 1 else 0)
+            for a, n in sizes.items()}
+
+
+def _dim_split(s, sizes, at) -> Tuple[int, int]:
+    """``(index, count)`` of this rank among a dimension's shards for one
+    entry of a spec (a mesh axis, a tuple of them row-major, or None)."""
+    if s is None:
+        return 0, 1
+    index, count = 0, 1
+    for a in (s if isinstance(s, tuple) else (s,)):
+        index = index * sizes[a] + at[a]
+        count *= sizes[a]
+    return index, count
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """One rank's shape of a leaf of ``shape`` placed by ``spec``."""
+    sizes = mesh_axis_sizes(mesh)
+    at = {a: 0 for a in sizes}
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // _dim_split(s, sizes, at)[1]
+                 for n, s in zip(shape, spec))
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _map_leaves(fn, tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, shardings[k]) for k, v in tree.items()}
+    if not _is_spec(shardings):
+        raise ValueError(f"a subtree of specs {shardings!r} where a leaf "
+                         f"lies")
+    return fn(tree, shardings)
+
+
+def shard_leaf(x, spec, mesh, coords=None):
+    """This rank's shard of one whole leaf (a view): along each dimension
+    ``spec`` names, the slice at this rank's index on those axes.
+    ``coords`` ({axis: index}) places the rank by hand (default: the
+    mesh's own rank)."""
+    sizes = mesh_axis_sizes(mesh)
+    at = _coords(mesh, coords)
+    for dim, s in enumerate(spec):
+        index, count = _dim_split(s, sizes, at)
+        if count > 1:
+            if x.shape[dim] % count:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does "
+                                 f"not split into {count}")
+            n = x.shape[dim] // count
+            x = x.narrow(dim, index * n, n)
+    return x
+
+
+def shard_params(tree, shardings, mesh, coords=None):
+    """This rank's shard of each whole leaf of ``tree`` (views), each
+    placed by its spec (``param_shardings``) as :func:`shard_leaf`
+    does."""
+    return _map_leaves(lambda x, spec: shard_leaf(x, spec, mesh, coords),
+                       tree, shardings)
+
+
+def gather_params(tree, shardings, mesh):
+    """The whole leaves of a tree of this rank's shards, on the host:
+    each sharded dimension put together by an ``all_reduce`` of a
+    zero-filled whole buffer over the process group of its axis (on the
+    leaves' device), then copied to the CPU.  Every rank of the mesh
+    calls it and every rank gets the whole tree."""
+    sizes = mesh_axis_sizes(mesh)
+    at = _coords(mesh, None)
+
+    def one(x, spec):
+        for dim, s in enumerate(spec):
+            index, count = _dim_split(s, sizes, at)
+            if count == 1:
+                continue
+            if isinstance(s, tuple):
+                raise ValueError(f"spec {spec}: a leaf split over several "
+                                 f"axes at once is not gathered")
+            shape = list(x.shape)
+            shape[dim] *= count
+            whole = x.new_zeros(shape)
+            whole.narrow(dim, index * x.shape[dim],
+                         x.shape[dim]).copy_(x)
+            dist.all_reduce(whole, group=mesh.get_group(s))
+            x = whole
+        return x.detach().cpu()
+
+    return _map_leaves(one, tree, shardings)
 
 
 def logical_to_pspec(logical, rules=None, mesh=None) -> Tuple:
@@ -184,7 +331,7 @@ def _path_seed(path) -> int:
 
 
 def init_params(specs, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda"):
+                device="cuda", mesh=None):
     """Materialise a spec tree as a tree of tensors on ``device``.
 
     Each leaf draws from its own ``torch.Generator`` on ``device``, seeded
@@ -193,12 +340,27 @@ def init_params(specs, seed: int = 0, dtype=torch.bfloat16,
     of the tree.  The values are the port's own (torch's generators, not JAX's
     threefry), and a CUDA generator draws other values than the CPU's:
     to run two devices on the same weights, initialise on one and copy.
+
+    With ``mesh``, each leaf is this rank's shard of that whole leaf (its
+    ``param_shardings`` spec), cut as soon as the leaf is drawn: at most
+    one whole leaf is alive at a time.
     """
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed must be in [0, 2**32), got {seed}")
     device = torch.device(device)
 
     def one(path, spec: ParamSpec):
+        x = whole(path, spec)
+        if mesh is None:
+            return x
+        pspec = prune_pspec(logical_to_pspec(spec.logical, None, mesh),
+                            spec.shape, mesh)
+        part = shard_leaf(x, pspec, mesh)
+        # a copy of a proper slice, so the whole leaf is freed
+        return x if part.numel() == x.numel() else part.clone(
+            memory_format=torch.contiguous_format)
+
+    def whole(path, spec: ParamSpec):
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":

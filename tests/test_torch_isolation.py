@@ -67,7 +67,8 @@ def test_port_has_the_slice_modules():
                 "runtime/__init__.py", "runtime/trainer.py",
                 "data/pipeline.py", "launch/train.py", "launch/steps.py",
                 "launch/shapes.py", "core/pareto.py", "launch/roofline.py",
-                "launch/hlo_cost.py"):
+                "launch/hlo_cost.py", "launch/dryrun.py",
+                "parallel/tensor.py"):
         assert mod in rel, mod
     for src in ("sfdprt.cu", "pipeline.cu", "stream.cu"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
@@ -89,3 +90,14 @@ def test_scanner_catches_forbidden_imports(tmp_path):
                    "def f():\n    import repro.kernels\n")
     assert _forbidden_imports(str(src)) == [
         "line 1: jax.numpy", "line 2: repro.core", "line 6: repro.kernels"]
+
+
+def test_importing_the_dry_run_opens_no_process_group():
+    """``launch/dryrun.py`` opens its fake world inside ``run_cell`` /
+    ``main``, never at import (the reference's sets ``XLA_FLAGS`` at
+    import)."""
+    import importlib
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    importlib.reload(dryrun)
+    assert not dist.is_initialized()

@@ -20,7 +20,6 @@ leader rank batching and the other ranks following its turns) and
 """
 import socket
 import threading
-import time
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +36,8 @@ from repro_torch.launch import serve as TSERVE
 from repro_torch.launch.errors import ServiceShutdown
 from repro_torch.launch.faults import FaultInjector, InjectedFault
 from repro_torch.launch.service import DPRTService
+
+from _torch_spawn import spawn_with_deadline
 
 N = 13
 CPU = torch.device("cpu")
@@ -324,24 +325,12 @@ def _spawn_worker(rank, world, port, imgs, want, aot_dir):
 
 @pytest.mark.slow
 def test_four_gloo_ranks_serve_the_same_turns(tmp_path):
-    import torch.multiprocessing as mp
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     imgs, want = _spawn_expected()
-    ctx = mp.spawn(_spawn_worker, args=(4, port, imgs, want,
-                                        str(tmp_path)),
-                   nprocs=4, join=False)
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                pytest.fail(f"4 ranks did not finish within "
-                            f"{SPAWN_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
-    assert not any(p.is_alive() for p in ctx.processes)
-    assert all(p.exitcode == 0 for p in ctx.processes)
+    procs = spawn_with_deadline(_spawn_worker, 4,
+                                (4, port, imgs, want, str(tmp_path)),
+                                SPAWN_TIMEOUT_S)
+    assert not any(p.is_alive() for p in procs)
+    assert all(p.exitcode == 0 for p in procs)

@@ -44,7 +44,11 @@ from repro_torch.parallel.sharding import AbstractMesh
 from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
 from repro_torch.tree import tree_items
 
+from _torch_spawn import spawn_with_deadline
+
 REL = 1e-5
+#: the wall-clock limit of a spawned run: a deadlocked rank fails the test
+SPAWN_TIMEOUT_S = 240
 
 
 def _tree_np():
@@ -257,12 +261,13 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 
 
 def test_no_fallback_off_the_training_path(tmp_path):
-    """The card asked for and absent raises; a model axis raises."""
+    """The card asked for and absent raises; a model axis with no process
+    group behind it (an ``AbstractMesh``) raises an error that names it."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
                         "1", "--ckpt-dir", str(tmp_path / "ck")])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="model axis 2.*no process group"):
         Trainer(get_smoke_config(ARCH), _cfg(ckpt_dir=str(tmp_path)),
                 mesh=AbstractMesh((1, 2), ("data", "model")))
 
@@ -308,7 +313,6 @@ def _dp_worker(rank, world, port, ckpt_dir, want):
 
 @pytest.mark.slow
 def test_two_gloo_ranks_zero1_match_one_process(tmp_path):
-    import torch.multiprocessing as mp
     one = Trainer(get_smoke_config(ARCH),
                   _cfg(steps=4, batch_size=4, seq_len=16,
                        ckpt_dir=str(tmp_path / "one"))).run()
@@ -319,7 +323,8 @@ def test_two_gloo_ranks_zero1_match_one_process(tmp_path):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     dp_dir = str(tmp_path / "dp")
-    mp.spawn(_dp_worker, args=(2, port, dp_dir, want), nprocs=2, join=True)
+    spawn_with_deadline(_dp_worker, 2, (2, port, dp_dir, want),
+                        SPAWN_TIMEOUT_S)
     # rank 0 wrote whole moments: the checkpoint restores in one process
     got, step, _ = restore_checkpoint(
         dp_dir, {"params": one["params"], "opt": one["opt"]})
