@@ -22,8 +22,8 @@ just after, then prints the cost models beside what it measured:
 3. the giant-N path (kernels K4/K5, the streamed kernel):
    ``serve --mode radon --n 4099 --batch 4 --stream-rows 256`` through
    K5, the raw functions with ``stream_impl="grid"`` through K4, the
-   reference's N = 2053 acceptance image, a uint8 N = 4099 image (int64
-   accumulators), a float32 gradient and a streamed ``mul`` pipeline;
+   reference's N = 2053 acceptance image, a uint8 N = 4099 image (int32
+   sums, int64 out), a float32 gradient and a streamed ``mul`` pipeline;
 4. the mesh path (kernels K1 and K3, the pipeline's mesh tail) on a
    (1, 1) ``("data", "model")`` mesh at world size 1 over NCCL:
    ``serve --mesh-shape 1,1``, ``radon.Conv2D`` under
@@ -262,18 +262,22 @@ _KERNELS = ("stream_kernel", "sfdprt_kernel", "pipeline_kernel",
 
 def _instance(mangled: str):
     """(kernel, dtype name, variant) of a mangled kernel instantiation --
+    dtype "int32>int64" where an int32 operand stores int64 outputs;
     variant "grid"/"dma" for the streamed kernel, "K=<cols>" for K1, K2
     and K3, "" otherwise -- else None."""
-    m = re.search(r"(" + "|".join(_KERNELS) + r")I([ilfd])(?:Li(\d+)E)?",
-                  mangled)
+    m = re.search(r"(" + "|".join(_KERNELS) + r")I([ilfd])(?:Li(\d+)E)?"
+                  r"([ilfd])?", mangled)
     if m is None:
         return None
-    kernel, code, v = m.groups()
+    kernel, code, v, out = m.groups()
     if kernel == "stream_kernel":
         variant = ("grid", "dma")[int(v)]
     else:
         variant = "" if v is None else f"K={v}"
-    return kernel, _TYPES[code], variant
+    dtype = _TYPES[code]
+    if out not in (None, code):
+        dtype = f"{dtype}>{_TYPES[out]}"
+    return kernel, dtype, variant
 
 
 def ptxas_report(library: str) -> dict:
@@ -401,6 +405,9 @@ TILE_EDGE_NS = (31, 61)
 PIPE_EDGE_NS = (31, 61, 257)
 TILE_EDGE_MBLOCKS = (1, 5)
 TILE_EDGE_HEIGHTS = (3, 7)
+#: N at which K1 and K4/K5 run int32 sums stored as int64 against the
+#: int64 plain version (257: K = 4 in 3 runs, int16's first int64 N)
+NARROW_NS = (13, 61, 257)
 #: N past K1's registers, each just above a limit, with the streamed
 #: kernel the raw functions take there: K5 above 14336 (int32) / 7168
 #: (int64), K4 above 28613 / 14291, where K5's ring holds one padded row
@@ -523,6 +530,31 @@ def kernel_phase() -> dict:
             torch.cuda.synchronize()
             check_close(f"K1 overflow {label} N={n}", got,
                         S.sfdprt_plain(g, **kw), n)
+            cases += 1
+    # int32 sums stored as int64 (the forward of a narrow integer image):
+    # int16-range values of both signs, against the int64 plain version
+    for n in NARROW_NS:
+        h, mb = pallas_block_spec(n)
+        g = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (3, n, n)),
+                            dtype=torch.int32).to(dev)
+        part = g[:, 2:].contiguous()
+        for label, x, kw in (
+                ("core+", g, dict(sign=1, mode="core")),
+                ("core-", g, dict(sign=-1, mode="core")),
+                ("core-off", part, dict(sign=-1, mode="core", row_offset=2)),
+                ("forward", g, dict(sign=1, mode="forward")),
+                ("forward-off", part, dict(sign=1, mode="forward",
+                                           row_offset=2))):
+            before = S.NARROW_LAUNCHES
+            got = S.sfdprt(x, strip_rows=h, m_block=mb,
+                           out_dtype=torch.int64, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != torch.int64 or S.NARROW_LAUNCHES != before + 1:
+                fail(f"K1 narrow {label} N={n}: {got.dtype}, "
+                     f"{S.NARROW_LAUNCHES - before} narrow launches")
+            err = check_close(f"K1 narrow {label} N={n}", got,
+                              S.sfdprt_plain(x.to(torch.int64), **kw), n)
+            worst[kw["mode"]] = max(worst.get(kw["mode"], 0.0), err)
             cases += 1
     # N too wide for K1's block (14336 int32, 7168 int64 columns): the raw
     # functions stream it through K5, or K4 where K5's ring cannot hold
@@ -1308,6 +1340,40 @@ def stream_kernel_phase() -> dict:
     g = make(torch.int32, (1, n, n), 0, 256)
     check(f"forward N={n} H={th} M={tm}", g, th, tm,
           dict(sign=1, mode="forward"))
+    # int32 sums stored as int64 (the forward of a narrow integer image):
+    # int16-range values of both signs at the check sizes, and the uint8
+    # range at giant N, against the int64 plain version
+    narrow = [(n, g, 3, "uint8 range")]
+    for n2 in NARROW_NS:
+        narrow.append((n2, make(torch.int32, (2, n2, n2), -2 ** 15, 2 ** 15),
+                       2, "int16 range"))
+    for n2, x, off, what in narrow:
+        th, tm = pallas_block_spec(n2)
+        want64 = x.to(torch.int64)
+        for label, kw in (("core-", dict(sign=-1, mode="core")),
+                          ("forward", dict(sign=1, mode="forward")),
+                          ("forward-off", dict(sign=1, mode="forward",
+                                               row_offset=off))):
+            xs = x[:, off:].contiguous() if "off" in label else x
+            want = ST.stream_plain(want64[:, off:].contiguous()
+                                   if "off" in label else want64,
+                                   stream_rows=th, **kw)
+            for impl in ST.STREAM_IMPLS:
+                before = ST.NARROW_LAUNCHES
+                got = ST.stream_raw(xs, stream_rows=th, m_block=tm,
+                                    stream_impl=impl, out_dtype=torch.int64,
+                                    **kw)
+                torch.cuda.synchronize()
+                if (got.dtype != torch.int64
+                        or ST.NARROW_LAUNCHES != before + 1):
+                    fail(f"K4/K5 {impl} narrow {label} N={n2}: {got.dtype}, "
+                         f"{ST.NARROW_LAUNCHES - before} narrow launches")
+                err = check_close(f"K4/K5 {impl} narrow {label} N={n2} "
+                                  f"{what}", got, want, n2)
+                key = f"{impl},{kw['mode']}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                cases += 1
+            del want
     # one launch per call, whatever the strip count; K1 never
     g = make(torch.int32, (1, 61, 61))
     for h in (7, 14):
@@ -1334,8 +1400,10 @@ def giant_main_path_phase() -> dict:
     """The giant-N path on the card: ``serve --mode radon --n 4099
     --batch 4 --stream-rows 256`` (K5), the raw functions with
     ``stream_impl="grid"`` (K4), the N = 2053 acceptance image, a uint8
-    N = 4099 image (int64 accumulators), a float32 gradient and a
-    streamed ``mul`` pipeline; returns the launches of that run."""
+    N = 4099 image (int32 sums, int64 out), a float32 gradient and a
+    streamed ``mul`` pipeline; returns the launches of that run by
+    (stream_impl, mode), and under "int32>int64" those of int32 sums
+    stored as int64."""
     import numpy as np
     import torch
     from repro_torch import radon
@@ -1393,6 +1461,7 @@ def giant_main_path_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = {key: v for key, v in ST.IMPL_MODE_LAUNCHES.items() if v}
     k1, k2 = dict(S.MODE_LAUNCHES), dict(P.OP_LAUNCHES)
+    narrow = ST.NARROW_LAUNCHES
 
     # serve: 1 warm + SERVE_ITERS each way; then N=2053, uint8, the
     # gradient's forward and adjoint (core), the staged mul pipeline
@@ -1406,6 +1475,9 @@ def giant_main_path_phase() -> dict:
              f"{want}")
     if any(k1.values()) or any(k2.values()):
         fail(f"the giant-N path launched K1 {k1} / K2 {k2}")
+    if narrow != 1:  # the uint8 forward sums in int32, nothing else does
+        fail(f"{narrow} streamed launches stored int32 sums as int64 on "
+             f"the giant-N path, not 1 (the uint8 forward)")
     if radon.trace_count(kind="kernel") != kernel_builds:
         fail("the giant-N path rebuilt a kernel")
     log(f"giant-N path: streamed launches {launches}, K1 0, K2 0, zero "
@@ -1447,9 +1519,10 @@ def giant_main_path_phase() -> dict:
         fail("the streamed mul pipeline differs from op.inverse(w * op(f))")
     log(f"giant-N path: N={n} B={b} serve round trip exact (K5) and equal "
         f"to K4's; N={n2} oracle rows 0, 1, N-1, N and round trip exact; "
-        f"uint8 N={n} (int64) round trip exact; float32 grad == op.T; "
+        f"uint8 N={n} (int32 sums, int64 out) round trip exact; float32 "
+        f"grad == op.T; "
         f"streamed mul pipeline exact")
-    return launches
+    return {**launches, "int32>int64": narrow}
 
 
 def sm_clock_mhz() -> tuple:
@@ -1469,7 +1542,8 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     ring depth) and ptxas's registers and spills; K5 forward also at the
     largest direction block the registers allow (the tile lowers it to
     fill the waves of SMs) and at ``radon_251`` beside K1; K5 forward on
-    the uint8 image's int64 accumulators."""
+    int64 accumulators (B = 1) and on the uint8 images' route, int32 sums
+    stored as int64 (B = 4)."""
     import numpy as np
     import torch
     from repro_torch.configs.radon_251 import config
@@ -1656,6 +1730,44 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
         f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
         f"{rows[-1]['design']}; {rows[-1]['adds_per_clock_per_sm']:.2f} "
         f"adds/clock/SM, rereads {rows[-1]['reread_tb_s']:.2f} TB/s)")
+    # K5 forward of uint8 images at B = 4 on their route since int32 sums
+    # are exact there (core/dprt.py:forward_sum_dtype_for): an int32
+    # operand, int32 sums, int64 outputs stored by the kernel
+    u4 = torch.from_numpy(np.random.default_rng(14).integers(
+        0, 256, (b, n, n), dtype=np.uint8)).to(dev).to(torch.int32)
+    t = stream_tile(n, n, 4, sr, mb, n + 1, "dma", batch=b, sms=sms)
+    k_ms = cuda_ms(lambda: ST.stream_raw(u4, sign=1, mode="forward",
+                                         stream_rows=sr, m_block=mb,
+                                         out_dtype=torch.int64),
+                   reps=GIANT_TIMING_REPS, warm=1)
+    clock = sm_clock_mhz()[0]
+    p_ms = b * cuda_ms(lambda: ST.stream_plain(
+        u4[:1], sign=1, mode="forward", stream_rows=sr,
+        out_dtype=torch.int64), reps=1, warm=0)
+    b_ms, by = bound(b * (4 * n * n + 8 * (n + 1) * n), b * (n ** 3 + n * n))
+    rows.append({
+        "name": "stream_kernel[dma,forward,int32>int64]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
+        "replaces": replaces["dma"],
+        "launches": launches.get("int32>int64", 0),
+        "max_abs_err": worst.get("dma,forward", 0.0),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "plain_ms_note": "B=1 run x B",
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": f"N={n} B={b} uint8 images, int32 sums, int64 out, "
+                 f"stream_rows={sr}",
+        "design": design(t, "dma", b, "int32>int64"),
+        **rates(k_ms, b * n ** 3, t, b, 4 * n * n, clock),
+    })
+    log(f"timing stream dma forward uint8 N={n} B={b} (int32 sums, int64 "
+        f"out): kernel {k_ms:.4f} ms, plain (B=1 x {b}) {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({by}; {rows[-1]['design']}; "
+        f"{rows[-1]['adds_per_clock_per_sm']:.2f} adds/clock/SM, rereads "
+        f"{rows[-1]['reread_tb_s']:.2f} TB/s)")
     return rows
 
 

@@ -9,7 +9,8 @@ a callable module keeps both ``repro_torch.core.dprt(f)`` and
 from . import dprt
 from .dprt import (idprt, dprt_batched, idprt_batched, skew_sum,
                    strip_partial, align_partial, is_prime,
-                   next_prime, accum_dtype_for, float_dtype_for,
+                   next_prime, accum_dtype_for, forward_sum_dtype_for,
+                   float_dtype_for,
                    int32_accum_exact, dprt_oracle_np, idprt_oracle_np)
 from .geometry import Geometry, normalize_geometry
 from .plan import (Backend, RadonPlan, available_backends,
@@ -26,7 +27,8 @@ from . import pareto
 __all__ = [
     "dprt", "idprt", "dprt_batched", "idprt_batched",
     "skew_sum", "strip_partial", "align_partial", "is_prime", "next_prime",
-    "accum_dtype_for", "float_dtype_for", "int32_accum_exact",
+    "accum_dtype_for", "forward_sum_dtype_for", "float_dtype_for",
+    "int32_accum_exact",
     "dprt_oracle_np", "idprt_oracle_np",
     "Geometry", "normalize_geometry",
     "Backend", "RadonPlan", "available_backends", "backend_capabilities",

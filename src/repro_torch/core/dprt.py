@@ -43,6 +43,7 @@ __all__ = [
     "strip_partial",
     "align_partial",
     "accum_dtype_for",
+    "forward_sum_dtype_for",
     "float_dtype_for",
     "int32_accum_exact",
     "dtype_kind",
@@ -158,6 +159,27 @@ def accum_dtype_for(dtype, n: Optional[int] = None) -> torch.dtype:
     if kind == "f":
         return torch.float64 if dtype == torch.float64 else torch.float32
     raise TypeError(f"DPRT has no accumulator for dtype {dtype}")
+
+
+def forward_sum_dtype_for(dtype, n: int) -> torch.dtype:
+    """The dtype the forward (and the bare skew-sum) of ``dtype`` data
+    may sum in at transform size N: int32 for an integer dtype narrower
+    than 4 bytes whenever ``v*N <= 2**31 - 1`` (v its largest
+    magnitude), else :func:`accum_dtype_for`.
+
+    The forward's counterpart of :func:`int32_accum_exact`: an output of
+    the forward or of the skew-sum of N rows is a sum of at most N
+    values, so its magnitude is at most ``v*N`` whatever the data, where
+    the inverse's reaches ``v*N*(N+1)``.  uint8 and int8 stay int32 at
+    every N the port runs, int16 up to N = 65521, uint16 up to 32768.
+    The result is still returned in :func:`accum_dtype_for`.
+    """
+    dtype = as_dtype(dtype)
+    if dtype_kind(dtype) in "iu" and dtype.itemsize < 4:
+        info = torch.iinfo(dtype)
+        if max(int(info.max), -int(info.min)) * int(n) <= _INT32_MAX:
+            return torch.int32
+    return accum_dtype_for(dtype, n)
 
 
 def float_dtype_for(dtype) -> torch.dtype:

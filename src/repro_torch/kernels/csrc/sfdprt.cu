@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel repro/kernels/sfdprt.py:_sfdprt_kernel (launched
 // by _pallas_skew_call).  It computes what that kernel computes, in three
-// modes, for a (B, rows, N) operand g in the accumulator type T:
+// modes, for a (B, rows, N) operand g in the type T it sums in, into an
+// output of type O:
 //
 //   core     out[b, m, d] = sum_i g[b, i, <d + sign*m*(row_offset + i)>_N]
 //            for m < N                                   -> (B, N, N)
@@ -13,7 +14,12 @@
 //            floor((Z[i, j] + corr[b, i]) / N), corr[i] = R(N, i) - S,
 //            computed by the caller                      -> (B, N, N)
 //
-// in one launch, each output written once.
+// in one launch, each output written once.  O is T, or int64 over an int32
+// operand in the core and forward modes: the forward of a narrow integer
+// image sums at most N values of magnitude <= v per output, so where v*N <
+// 2^31 it sums in int32 even where its result is int64 (uint8 at N >=
+// 2903), and only the store widens, through the signed 32-bit value, so a
+// negative int16 sum sign-extends (kernels/csrc/stream.cu says more).
 //
 // What bounds it.  At the main path's shapes (B = 256, N = 251, int32)
 // the kernel moves ~129 MB (39 us at 3.35 TB/s) but does B*N^3 = 4.0e9
@@ -82,10 +88,10 @@ struct Geometry {
   int sign, mode, off_mod;
 };
 
-template <typename T, int K>
+template <typename T, int K, typename O = T>
 __global__ void __launch_bounds__(kThreads, 2)
 sfdprt_kernel(const T* __restrict__ g, const T* __restrict__ corr,
-              T* __restrict__ out, const Geometry geo) {
+              O* __restrict__ out, const Geometry geo) {
   using U = arith_t<T>;
   constexpr int I = skew::kItems<sizeof(T)>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -107,7 +113,7 @@ sfdprt_kernel(const T* __restrict__ g, const T* __restrict__ corr,
   const bool owns_row_sums =
       (geo.mode == kForward) && (n >= m0) && (n < m0 + m_count);
   const T* gb = g + static_cast<long long>(b) * geo.g_bstride;
-  T* const ob = out + static_cast<long long>(b) * geo.out_rows * n;
+  O* const ob = out + static_cast<long long>(b) * geo.out_rows * n;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -127,7 +133,7 @@ sfdprt_kernel(const T* __restrict__ g, const T* __restrict__ corr,
                   const long long col = geo.row_offset + t;
                   if (col >= 0 && col < n) {
                     ob[static_cast<long long>(n) * n + col] =
-                        static_cast<T>(sum);
+                        static_cast<O>(static_cast<T>(sum));
                   }
                 });
 
@@ -137,38 +143,39 @@ sfdprt_kernel(const T* __restrict__ g, const T* __restrict__ corr,
       inverse ? corr + static_cast<long long>(b) * n : nullptr;
   skew::tile_emit(tile, q0, live, m0, geo.runs, n, lane,
                   [&](int m, int d, U v) {
-                    T* const o = ob + static_cast<long long>(m) * n + d;
+                    O* const o = ob + static_cast<long long>(m) * n + d;
                     if (inverse) {
                       const U total = v + static_cast<U>(cb[m]);
-                      *o = skew::divide_by_n(static_cast<T>(total), n);
+                      *o = static_cast<O>(
+                          skew::divide_by_n(static_cast<T>(total), n));
                     } else {
-                      *o = static_cast<T>(v);
+                      *o = static_cast<O>(static_cast<T>(v));
                     }
                   });
   if (owns_row_sums) {  // row N's columns that no image row reaches
-    T* const orow = ob + static_cast<long long>(n) * n;
+    O* const orow = ob + static_cast<long long>(n) * n;
     for (int col = threadIdx.x; col < n; col += geo.warps * 32) {
       const long long t = col - geo.row_offset;
-      if (t < 0 || t >= geo.rows) orow[col] = T(0);
+      if (t < 0 || t >= geo.rows) orow[col] = O(0);
     }
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, typename O>
 int launch(const void* g, const void* corr, void* out, int batch,
            const Geometry& geo, size_t smem, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        sfdprt_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sfdprt_kernel<T, K, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sfdprt_kernel<T, K><<<static_cast<unsigned>(blocks), (geo.warps + 1) * 32,
-                        smem, stream>>>(static_cast<const T*>(g),
-                                        static_cast<const T*>(corr),
-                                        static_cast<T*>(out), geo);
+  sfdprt_kernel<T, K, O><<<static_cast<unsigned>(blocks),
+                           (geo.warps + 1) * 32, smem, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(corr),
+      static_cast<O*>(out), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,7 +202,7 @@ enum : int {
 // Check the host's tile against this instantiation and the budgets, and
 // launch the instantiation of K.  The layout is the host's; these are
 // the conditions the kernel relies on.
-template <typename T>
+template <typename T, typename O = T>
 int launch_checked(const void* g, long long g_bstride, const void* corr,
                    void* out, int batch, int rows, int n, int out_rows,
                    const int* t, int sign, int mode, long long row_offset,
@@ -243,29 +250,39 @@ int launch_checked(const void* g, long long g_bstride, const void* corr,
   }
   const size_t bytes = static_cast<size_t>(smem);
   switch (cols) {
-    case 1: return launch<T, 1>(g, corr, out, batch, geo, bytes, s);
-    case 2: return launch<T, 2>(g, corr, out, batch, geo, bytes, s);
-    case 4: return launch<T, 4>(g, corr, out, batch, geo, bytes, s);
-    case 8: return launch<T, 8>(g, corr, out, batch, geo, bytes, s);
+    case 1: return launch<T, 1, O>(g, corr, out, batch, geo, bytes, s);
+    case 2: return launch<T, 2, O>(g, corr, out, batch, geo, bytes, s);
+    case 4: return launch<T, 4, O>(g, corr, out, batch, geo, bytes, s);
+    case 8: return launch<T, 8, O>(g, corr, out, batch, geo, bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 int32, 1 int64, 2 float32, 3 float64; tile: the tile::kCount
-// fields of kernels/tuning.py:skew_tile.  Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
-extern "C" int sfdprt_launch(int dtype, const void* g, long long g_bstride,
-                             const void* corr, void* out, int batch, int rows,
-                             int n, int out_rows, const int* tile, int sign,
-                             int mode, long long row_offset, void* stream) {
+// dtype, out_dtype: 0 int32, 1 int64, 2 float32, 3 float64, the operand's
+// and the output's, equal or int32 -> int64 outside the inverse mode; tile:
+// the tile::kCount fields of kernels/tuning.py:skew_tile.  Returns a
+// cudaError_t (0 on success); the launch is asynchronous on `stream`.
+extern "C" int sfdprt_launch(int dtype, int out_dtype, const void* g,
+                             long long g_bstride, const void* corr, void* out,
+                             int batch, int rows, int n, int out_rows,
+                             const int* tile, int sign, int mode,
+                             long long row_offset, void* stream) {
   if (tile == nullptr || batch < 1 || rows < 1 || n < 1 ||
       (sign != 1 && sign != -1) || mode < kCore || mode > kInverse ||
       (mode == kInverse && corr == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype != dtype) {
+    if (dtype != 0 || out_dtype != 1 || mode == kInverse) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_checked<int32_t, int64_t>(g, g_bstride, corr, out, batch,
+                                            rows, n, out_rows, tile, sign,
+                                            mode, row_offset, s);
+  }
   switch (dtype) {
     case 0:
       return launch_checked<int32_t>(g, g_bstride, corr, out, batch, rows, n,

@@ -3,7 +3,8 @@
 // Replaces the TPU kernels repro/kernels/sfdprt.py:_stream_grid_kernel (K4,
 // stream_impl="grid") and _stream_dma_kernel (K5, stream_impl="dma"), both
 // launched by _pallas_stream_call.  It computes what K1 computes, in the
-// same three modes, for a (B, rows, N) operand g in the accumulator type T:
+// same three modes, for a (B, rows, N) operand g in the type T it sums in,
+// into an output of type O (T, or int64 from int32: below):
 //
 //   core     out[b, m, d] = sum_i g[b, i, <d + sign*m*(row_offset + i)>_N]
 //            for m < N                                   -> (B, N, N)
@@ -29,6 +30,18 @@
 // image at that shape).  The design spends ~1.65 other instructions per
 // add (SASS: 207 instructions for 78 loads and adds in the inner loop), so
 // neither instruction issue nor registers stand in the way of those two.
+// 8-byte sums halve the adds a shared-memory clock feeds, thin the tile to
+// 4 directions per block and double both the bytes and the blocks that
+// reread the image (1025 per image), ~2.8x the time at that shape.
+//
+// The forward and the core of a narrow integer image (uint8, int16) need
+// no 8-byte sums even where the result is int64 (uint8 at N >= 2903): an
+// output sums at most N values of magnitude <= v, and v*N < 2^31 for every
+// N the port runs, so the host hands an int32 operand and asks for an int64
+// output (O = int64_t, T = int32_t; forward and core only).  The kernel
+// then runs the 4-byte tile and its bounds above, and only the store
+// widens: static_cast<O>(static_cast<T>(sum)), the wrapped unsigned sum
+// read back as signed 32-bit first, so a negative int16 sum sign-extends.
 //
 // Design.  One thread block per (image b, block of D output rows), with
 // `warps` consumer warps; the block owns all N columns of its rows,
@@ -425,12 +438,12 @@ __device__ __forceinline__ void sum_stage(
   }
 }
 
-template <typename T, int kImpl>
+template <typename T, int kImpl, typename O = T>
 __global__ void __launch_bounds__((kWarps<kImpl> + (kImpl == kDma ? 1 : 0)) *
                                       32,
                                   1)
 stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
-              T* __restrict__ out, const Geometry geo) {
+              O* __restrict__ out, const Geometry geo) {
   using U = arith_t<T>;
   constexpr int K = Shape<sizeof(T)>::kCols;
   constexpr int I = Shape<sizeof(T)>::kItems;
@@ -547,7 +560,7 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
           sum += __shfl_down_sync(0xffffffffu, sum, o);
         if (lane == 0) {
           out[(static_cast<long long>(b) * geo.out_rows + n) * n + col] =
-              static_cast<T>(sum);
+              static_cast<O>(static_cast<T>(sum));
         }
       }
     }
@@ -560,7 +573,7 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
   }
 
   // the outputs, written once
-  T* const ob = out + static_cast<long long>(b) * geo.out_rows * n;
+  O* const ob = out + static_cast<long long>(b) * geo.out_rows * n;
 #pragma unroll
   for (int u = 0; u < I; ++u) {
     if (u < live) {
@@ -570,28 +583,29 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
       const U cm = geo.mode == kInverse
                        ? static_cast<U>(corr[static_cast<long long>(b) * n + m])
                        : U(0);
-      T* const orow = ob + static_cast<long long>(m) * n;
+      O* const orow = ob + static_cast<long long>(m) * n;
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         const int d = c * 32 * K + lane + 32 * j;
         if (d < n) {
-          orow[d] = geo.mode == kInverse
-                        ? divide_by_n(static_cast<T>(acc[u][j] + cm), n)
-                        : static_cast<T>(acc[u][j]);
+          orow[d] = static_cast<O>(
+              geo.mode == kInverse
+                  ? divide_by_n(static_cast<T>(acc[u][j] + cm), n)
+                  : static_cast<T>(acc[u][j]));
         }
       }
     }
   }
   if (owns_row_sums) {  // row N's columns that no image row reaches
-    T* const orow = ob + static_cast<long long>(n) * n;
+    O* const orow = ob + static_cast<long long>(n) * n;
     for (int col = threadIdx.x; col < n; col += geo.warps * 32) {
       const long long t = col - geo.row_offset;
-      if (t < 0 || t >= geo.rows) orow[col] = T(0);
+      if (t < 0 || t >= geo.rows) orow[col] = O(0);
     }
   }
 }
 
-template <typename T, int kImpl>
+template <typename T, int kImpl, typename O>
 int launch(const void* g, const void* corr, void* out, int batch,
            Geometry geo, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
@@ -601,21 +615,21 @@ int launch(const void* g, const void* corr, void* out, int batch,
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<T, kImpl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        stream_kernel<T, kImpl, O>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = (geo.warps + (kImpl == kDma ? 1 : 0)) * 32;
-  stream_kernel<T, kImpl>
+  stream_kernel<T, kImpl, O>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
           static_cast<const T*>(g), static_cast<const T*>(corr),
-          static_cast<T*>(out), geo);
+          static_cast<O*>(out), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Fill in what follows from the host's choice and check it against this
 // instantiation's Shape and the budgets.
-template <typename T>
+template <typename T, typename O = T>
 int launch_checked(int impl, const void* g, long long g_bstride,
                    const void* corr, void* out, int batch, int rows, int n,
                    int out_rows, int dirs, int warps, int cols, int items,
@@ -652,19 +666,21 @@ int launch_checked(int impl, const void* g, long long g_bstride,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (impl == kGrid) {
-    return launch<T, kGrid>(g, corr, out, batch, geo, s);
+    return launch<T, kGrid, O>(g, corr, out, batch, geo, s);
   }
-  return launch<T, kDma>(g, corr, out, batch, geo, s);
+  return launch<T, kDma, O>(g, corr, out, batch, geo, s);
 }
 
 }  // namespace
 
-// dtype: 0 int32, 1 int64, 2 float32, 3 float64; impl: 0 grid (K4), 1 dma
-// (K5); dirs, warps, cols, items, stage_rows, slots: the tile of
-// kernels/tuning.py:stream_tile.  Returns a cudaError_t (0 on success); the
-// launch is asynchronous on `stream`.
-extern "C" int stream_launch(int impl, int dtype, const void* g,
-                             long long g_bstride, const void* corr, void* out,
+// dtype, out_dtype: 0 int32, 1 int64, 2 float32, 3 float64, the operand's
+// and the output's, equal or int32 -> int64 outside the inverse mode; impl:
+// 0 grid (K4), 1 dma (K5); dirs, warps, cols, items, stage_rows, slots: the
+// tile of kernels/tuning.py:stream_tile.  Returns a cudaError_t (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int stream_launch(int impl, int dtype, int out_dtype,
+                             const void* g, long long g_bstride,
+                             const void* corr, void* out,
                              int batch, int rows, int n, int out_rows,
                              int dirs, int warps, int cols, int items,
                              int stage_rows, int slots, int sign, int mode,
@@ -676,6 +692,14 @@ extern "C" int stream_launch(int impl, int dtype, const void* g,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype != dtype) {
+    if (dtype != 0 || out_dtype != 1 || mode == kInverse) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_checked<int32_t, int64_t>(
+        impl, g, g_bstride, corr, out, batch, rows, n, out_rows, dirs, warps,
+        cols, items, stage_rows, slots, sign, mode, row_offset, s);
+  }
   switch (dtype) {
     case 0:
       return launch_checked<int32_t>(impl, g, g_bstride, corr, out, batch,

@@ -4,8 +4,10 @@ streamed kernel, and K2, the fused projection-domain pipeline.
 The port of :mod:`repro.kernels.ops`: the layer the plan's ``cuda``
 backend dispatches to.  Each wrapper takes a single (N, N) image or a
 batched (B, N, N) stack (one kernel call per stack), resolves block
-shapes through :mod:`.tuning` when not given, and accumulates in
-:func:`repro_torch.core.dprt.accum_dtype_for`.  The forward/inverse
+shapes through :mod:`.tuning` when not given, and returns
+:func:`repro_torch.core.dprt.accum_dtype_for` (the forward and the bare
+skew-sum sum in :func:`repro_torch.core.dprt.forward_sum_dtype_for`,
+and the kernels' tiles follow that width).  The forward/inverse
 epilogues run inside K1; :func:`projection_pipeline_cuda` runs forward,
 per-direction op and inverse in one K2 call.
 
@@ -33,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from ..core.dprt import accum_dtype_for, is_prime
+from ..core.dprt import accum_dtype_for, forward_sum_dtype_for, is_prime
 from .pipeline import PIPELINE_OPS, pipeline_raw, pipeline_tail_raw
 from .sfdprt import _rows_contiguous, dprt_raw, idprt_raw, skew_sum_raw
 from .tuning import resolve_blocks, resolve_pipeline_blocks
@@ -47,10 +49,11 @@ __all__ = ["dprt_cuda", "idprt_cuda", "skew_sum_cuda",
 
 
 def _resolve_blocks(n: int, strip_rows: Optional[int],
-                    m_block: Optional[int], dtype,
+                    m_block: Optional[int], operand: torch.dtype,
                     stream_rows: Optional[int] = None) -> tuple[int, int]:
-    return resolve_blocks(n, accum_dtype_for(dtype, n).itemsize,
-                          strip_rows, m_block, stream_rows=stream_rows)
+    """(strip_rows, m_block) for a kernel that sums in ``operand``."""
+    return resolve_blocks(n, operand.itemsize, strip_rows, m_block,
+                          stream_rows=stream_rows)
 
 
 def skew_sum_cuda(g: torch.Tensor, sign: int = 1,
@@ -62,8 +65,9 @@ def skew_sum_cuda(g: torch.Tensor, sign: int = 1,
     Counterpart of ``repro.kernels.ops.skew_sum_pallas``; serves the
     plan's batched adjoint datapaths (exact gradients through the
     kernel)."""
-    h, mb = _resolve_blocks(g.shape[-1], strip_rows, m_block, g.dtype,
-                            stream_rows)
+    n = g.shape[-1]
+    h, mb = _resolve_blocks(n, strip_rows, m_block,
+                            forward_sum_dtype_for(g.dtype, n), stream_rows)
     return skew_sum_raw(g, sign=sign, strip_rows=h, m_block=mb,
                         stream_rows=stream_rows)
 
@@ -79,7 +83,8 @@ def skew_sum_cuda_strip(g: torch.Tensor, sign: int = 1, *,
     ``repro.kernels.ops.skew_sum_pallas_strip``; summing the partials of
     all strips gives the full skew-sum."""
     n = g.shape[-1]
-    h, mb = _resolve_blocks(n, strip_rows, m_block, g.dtype, stream_rows)
+    h, mb = _resolve_blocks(n, strip_rows, m_block,
+                            forward_sum_dtype_for(g.dtype, n), stream_rows)
     return skew_sum_raw(g, sign=sign, strip_rows=h, m_block=mb,
                         row_offset=row_offset,
                         stream_rows=stream_rows)
@@ -96,7 +101,8 @@ def dprt_cuda_strip(g: torch.Tensor, *, row_offset: int = 0,
     n = g.shape[-1]
     single = g.ndim == 2
     gb = g[None] if single else g
-    h, mb = _resolve_blocks(n, strip_rows, m_block, g.dtype, stream_rows)
+    h, mb = _resolve_blocks(n, strip_rows, m_block,
+                            forward_sum_dtype_for(g.dtype, n), stream_rows)
     out = dprt_raw(gb, strip_rows=h, m_block=mb, row_offset=row_offset,
                    stream_rows=stream_rows)
     return out[0] if single else out
@@ -116,7 +122,8 @@ def dprt_cuda(f: torch.Tensor, strip_rows: Optional[int] = None,
     n = fb.shape[-1]
     if not is_prime(n):
         raise ValueError(f"DPRT needs prime N, got {n}")
-    h, mb = _resolve_blocks(n, strip_rows, m_block, fb.dtype, stream_rows)
+    h, mb = _resolve_blocks(n, strip_rows, m_block,
+                            forward_sum_dtype_for(fb.dtype, n), stream_rows)
     out = dprt_raw(fb, strip_rows=h, m_block=mb,
                    stream_rows=stream_rows)
     return out[0] if single else out
@@ -135,7 +142,8 @@ def idprt_cuda(r: torch.Tensor, strip_rows: Optional[int] = None,
         raise ValueError(
             f"iDPRT input must be (B, N+1, N) or (N+1, N) with N prime: "
             f"{tuple(r.shape)}")
-    h, mb = _resolve_blocks(n, strip_rows, m_block, rb.dtype, stream_rows)
+    h, mb = _resolve_blocks(n, strip_rows, m_block,
+                            accum_dtype_for(rb.dtype, n), stream_rows)
     out = idprt_raw(rb, strip_rows=h, m_block=mb,
                     stream_rows=stream_rows)
     return out[0] if single else out

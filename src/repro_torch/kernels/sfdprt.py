@@ -22,6 +22,13 @@ directions of one block, whose sums sit in registers); they change no
 integer result.  With ``stream_rows`` the raw functions below launch
 the streamed kernel (:mod:`.stream`, K4/K5) instead of K1, and so they
 do where N is too wide for K1's block (:func:`_skew`).
+
+The forward and the bare skew-sum of a narrow integer image sum in
+:func:`repro_torch.core.dprt.forward_sum_dtype_for` (int32 for uint8
+at every N the port runs) and return :func:`accum_dtype_for` (int64 at
+N >= 2903 for uint8): the kernels store their int32 sums as int64
+(``out_dtype``), so no cast kernel follows; the inverse sums in
+:func:`accum_dtype_for`.
 """
 from __future__ import annotations
 
@@ -30,21 +37,24 @@ import functools
 
 import torch
 
-from ..core.dprt import accum_dtype_for
+from ..core.dprt import accum_dtype_for, forward_sum_dtype_for
 from . import _build
-from .stream import _sms, stream_raw
+from .stream import _sms, check_out_dtype, stream_raw
 from .tuning import SkewTile, skew_holds, skew_tile, stream_dma_holds
 
 __all__ = ["sfdprt", "sfdprt_launch_tile", "sfdprt_plain", "skew_sum_raw",
            "dprt_raw", "idprt_raw", "isfdprt_core", "MODE_LAUNCHES",
-           "reset_launch_counts", "skew_sum_pallas_raw", "dprt_pallas_raw",
-           "idprt_pallas_raw", "pipeline_pallas_raw"]
+           "NARROW_LAUNCHES", "reset_launch_counts", "skew_sum_pallas_raw",
+           "dprt_pallas_raw", "idprt_pallas_raw", "pipeline_pallas_raw"]
 
 #: kernel launches since the last reset (all modes); MODE_LAUNCHES splits
-#: the same count by mode.  Only :func:`sfdprt` adds to them, once per
-#: launch of the CUDA kernel.
+#: the same count by mode, NARROW_LAUNCHES counts those whose operand is
+#: narrower than their output (int32 sums stored as int64).  Only
+#: :func:`sfdprt_launch_tile` adds to them, once per launch of the CUDA
+#: kernel.
 LAUNCHES = 0
 MODE_LAUNCHES = {"core": 0, "forward": 0, "inverse": 0}
+NARROW_LAUNCHES = 0
 
 _MODES = {"core": 0, "forward": 1, "inverse": 2}
 _DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
@@ -55,8 +65,8 @@ _PLAIN_CHUNK = 1 << 25
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, NARROW_LAUNCHES
+    LAUNCHES = NARROW_LAUNCHES = 0
     for mode in MODE_LAUNCHES:
         MODE_LAUNCHES[mode] = 0
 
@@ -65,8 +75,8 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sfdprt")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sfdprt_launch.argtypes = [i32, vp, i64, vp, vp, i32, i32, i32, i32,
-                                  vp, i32, i32, i64, vp]
+    lib.sfdprt_launch.argtypes = [i32, i32, vp, i64, vp, vp, i32, i32, i32,
+                                  i32, vp, i32, i32, i64, vp]
     lib.sfdprt_launch.restype = i32
     lib.sfdprt_error_string.argtypes = [i32]
     lib.sfdprt_error_string.restype = ctypes.c_char_p
@@ -105,17 +115,19 @@ def _check(g: torch.Tensor, sign: int, mode: str, corr, strip_rows: int,
 
 def sfdprt(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
            m_block: int, corr: torch.Tensor | None = None,
-           row_offset: int = 0) -> torch.Tensor:
-    """Run K1 over ``g`` (B, rows, N), already in the accumulator dtype.
+           row_offset: int = 0,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Run K1 over ``g`` (B, rows, N), already in the dtype it sums in.
 
-    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise.  A
-    CUDA operand launches the kernel on the current stream (raising if
+    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise, in
+    ``out_dtype`` (:func:`.stream.check_out_dtype`; default ``g.dtype``).
+    A CUDA operand launches the kernel on the current stream (raising if
     the launch is refused); a CPU operand takes :func:`sfdprt_plain`.
     """
     _check(g, sign, mode, corr, strip_rows, m_block)
     if g.device.type == "cpu":
         return sfdprt_plain(g, sign=sign, mode=mode, corr=corr,
-                            row_offset=row_offset)
+                            row_offset=row_offset, out_dtype=out_dtype)
     if g.device.type != "cuda":
         raise RuntimeError(f"K1 runs on CUDA or CPU tensors, not {g.device}")
     b, rows, n = g.shape
@@ -124,29 +136,31 @@ def sfdprt(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
                      out_rows, batch=max(1, b),
                      sms=_sms(g.device.index or 0))
     return sfdprt_launch_tile(g, tile, sign=sign, mode=mode, corr=corr,
-                              row_offset=row_offset)
+                              row_offset=row_offset, out_dtype=out_dtype)
 
 
 def sfdprt_launch_tile(g: torch.Tensor, tile: SkewTile, *, sign: int,
                        mode: str, corr: torch.Tensor | None = None,
-                       row_offset: int = 0) -> torch.Tensor:
+                       row_offset: int = 0,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Launch K1 over the CUDA operand ``g`` with an explicit ``tile``
     (:func:`sfdprt` passes :func:`.tuning.skew_tile`'s; ``chip_smoke.py``
     times others).  The kernel checks the tile against its own constants
     and budgets and the launch raises if it is refused."""
-    global LAUNCHES
+    global LAUNCHES, NARROW_LAUNCHES
     _check(g, sign, mode, corr, tile.stage_rows, tile.m_block)
+    out_dtype = check_out_dtype(g, mode, out_dtype)
     if g.device.type != "cuda":
         raise RuntimeError(f"K1 launches on CUDA tensors, not {g.device}")
     b, rows, n = g.shape
     out_rows = n + 1 if mode == "forward" else n
-    out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
+    out = torch.empty((b, out_rows, n), dtype=out_dtype, device=g.device)
     if b == 0:
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.sfdprt_launch(
-        _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
+        _DTYPES[g.dtype], _DTYPES[out_dtype], g.data_ptr(), g.stride(0),
         None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
         n, out_rows, tile_array(tile), int(sign), _MODES[mode],
         int(row_offset), stream)
@@ -157,6 +171,7 @@ def sfdprt_launch_tile(g: torch.Tensor, tile: SkewTile, *, sign: int,
     with _build.COUNT_LOCK:
         LAUNCHES += 1
         MODE_LAUNCHES[mode] += 1
+        NARROW_LAUNCHES += out_dtype != g.dtype
     _build.note_launch("sfdprt", tile)
     return out
 
@@ -168,11 +183,14 @@ def tile_array(tile) -> ctypes.Array:
 
 
 def sfdprt_plain(g: torch.Tensor, *, sign: int, mode: str,
-                 corr: torch.Tensor | None = None,
-                 row_offset: int = 0) -> torch.Tensor:
+                 corr: torch.Tensor | None = None, row_offset: int = 0,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch version of K1 (any device): for each chunk of
     directions, gather ``g[b, i, <d + sign*m*(row_offset + i)>_N]`` and
-    sum over i; then the mode's row-sum row or inverse epilogue."""
+    sum over i in ``g.dtype``; then the mode's row-sum row or inverse
+    epilogue; the result is stored in ``out_dtype``, as the kernel
+    stores it."""
+    out_dtype = check_out_dtype(g, mode, out_dtype)
     b, rows, n = g.shape
     dev = g.device
     out_rows = n + 1 if mode == "forward" else n
@@ -199,7 +217,7 @@ def sfdprt_plain(g: torch.Tensor, *, sign: int, mode: str,
             out = total / n
         else:
             out = torch.div(total, n, rounding_mode="floor")
-    return out
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -215,13 +233,14 @@ def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
 
 def _skew(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
           m_block: int, corr=None, row_offset=None, stream_rows=None,
-          stream_impl=None) -> torch.Tensor:
+          stream_impl=None, out_dtype=None) -> torch.Tensor:
     """K1, or with ``stream_rows`` the streamed kernel K4/K5 (and then
     K1 is not launched).  Where K1 cannot hold one direction of N
     (:func:`.tuning.skew_holds`: N > 14336 for 4-byte sums, 7168 for
-    8-byte ones) the operand streams through K5 in stages of at most
-    ``strip_rows`` rows, or through K4 where K5's ring cannot hold two
-    padded rows: the same function in one launch."""
+    8-byte ones; the operand's width, not ``out_dtype``'s, counts) the
+    operand streams through K5 in stages of at most ``strip_rows``
+    rows, or through K4 where K5's ring cannot hold two padded rows:
+    the same function in one launch."""
     n = g.shape[2]
     if stream_rows is None and not skew_holds(n, g.element_size()):
         stream_rows = strip_rows
@@ -231,9 +250,10 @@ def _skew(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
         return stream_raw(g, sign=sign, mode=mode,
                           stream_rows=int(stream_rows), m_block=m_block,
                           corr=corr, row_offset=row_offset or 0,
-                          stream_impl=stream_impl)
+                          stream_impl=stream_impl, out_dtype=out_dtype)
     return sfdprt(g, sign=sign, mode=mode, strip_rows=strip_rows,
-                  m_block=m_block, corr=corr, row_offset=row_offset or 0)
+                  m_block=m_block, corr=corr, row_offset=row_offset or 0,
+                  out_dtype=out_dtype)
 
 
 def skew_sum_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
@@ -242,16 +262,18 @@ def skew_sum_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
                  stream_impl: str | None = None) -> torch.Tensor:
     """Bare skew-sum via K1 (core mode): (rows, N) or (B, rows, N), N
     prime, to the same rank with N direction rows in the accumulator
-    dtype; ``rows < N`` with a ``row_offset`` gives the partial of a
-    row strip aligned to global rows.  ``stream_rows`` streams the rows
-    through K4/K5 (``stream_impl`` "grid" or "dma", default "dma")."""
+    dtype, summed in :func:`forward_sum_dtype_for`; ``rows < N`` with a
+    ``row_offset`` gives the partial of a row strip aligned to global
+    rows.  ``stream_rows`` streams the rows through K4/K5
+    (``stream_impl`` "grid" or "dma", default "dma")."""
     single = g.ndim == 2
     gb = g[None] if single else g
     n = gb.shape[-1]
-    ga = _rows_contiguous(gb.to(accum_dtype_for(g.dtype, n)))
+    ga = _rows_contiguous(gb.to(forward_sum_dtype_for(g.dtype, n)))
     out = _skew(ga, sign=sign, mode="core", strip_rows=strip_rows,
                 m_block=m_block, row_offset=row_offset,
-                stream_rows=stream_rows, stream_impl=stream_impl)
+                stream_rows=stream_rows, stream_impl=stream_impl,
+                out_dtype=accum_dtype_for(g.dtype, n))
     return out[0] if single else out
 
 
@@ -259,14 +281,16 @@ def dprt_raw(f: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
              row_offset=None, stream_rows: int | None = None,
              stream_impl: str | None = None) -> torch.Tensor:
     """Fused batched forward DPRT: (B, N, N) -> (B, N+1, N) in one launch,
-    the R(N, d) row produced in-kernel.  With ``rows < N`` and a
+    the R(N, d) row produced in-kernel, in the accumulator dtype and
+    summed in :func:`forward_sum_dtype_for`.  With ``rows < N`` and a
     ``row_offset`` this is the partial forward of a row strip;
     ``stream_rows`` runs it through K4/K5."""
     n = f.shape[-1]
-    fa = _rows_contiguous(f.to(accum_dtype_for(f.dtype, n)))
+    fa = _rows_contiguous(f.to(forward_sum_dtype_for(f.dtype, n)))
     return _skew(fa, sign=1, mode="forward", strip_rows=strip_rows,
                  m_block=m_block, row_offset=row_offset,
-                 stream_rows=stream_rows, stream_impl=stream_impl)
+                 stream_rows=stream_rows, stream_impl=stream_impl,
+                 out_dtype=accum_dtype_for(f.dtype, n))
 
 
 def idprt_raw(r: torch.Tensor, strip_rows: int = 16, m_block: int = 8,

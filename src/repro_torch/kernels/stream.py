@@ -28,6 +28,12 @@ the rows of one shared-memory stage and ``m_block`` caps the directions
 of one block (:func:`.tuning.stream_tile`: at N = 4099 int32, K5 runs 9
 directions per block in 15 consumer warps and a ring of three 4-row
 stages).  Neither changes an integer result.
+
+``out_dtype`` lets the forward and the bare skew-sum of a narrow integer
+image sum in int32 and store int64 (:func:`.sfdprt.dprt_raw` asks for it
+where :func:`repro_torch.core.dprt.forward_sum_dtype_for` allows): the
+tile and the route follow the operand's 4-byte width, and the kernel
+widens each output as it stores it.
 """
 from __future__ import annotations
 
@@ -41,16 +47,19 @@ from .tuning import StreamTile, stream_tile
 
 __all__ = ["stream_raw", "stream_launch_tile", "stream_plain",
            "STREAM_IMPLS", "LAUNCHES", "IMPL_MODE_LAUNCHES",
-           "reset_launch_counts"]
+           "NARROW_LAUNCHES", "reset_launch_counts", "check_out_dtype"]
 
 STREAM_IMPLS = ("grid", "dma")
 
 #: kernel launches since the last reset; IMPL_MODE_LAUNCHES splits the
-#: same count by (stream_impl, mode).  Only :func:`stream_raw` adds to
-#: them, once per launch of the CUDA kernel.
+#: same count by (stream_impl, mode), NARROW_LAUNCHES counts those whose
+#: operand is narrower than their output (int32 sums stored as int64).
+#: Only :func:`stream_launch_tile` adds to them, once per launch of the
+#: CUDA kernel.
 LAUNCHES = 0
 IMPL_MODE_LAUNCHES = {(impl, mode): 0 for impl in STREAM_IMPLS
                       for mode in ("core", "forward", "inverse")}
+NARROW_LAUNCHES = 0
 
 _IMPLS = {"grid": 0, "dma": 1}
 _MODES = {"core": 0, "forward": 1, "inverse": 2}
@@ -62,8 +71,8 @@ _PLAIN_CHUNK = 1 << 25
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, NARROW_LAUNCHES
+    LAUNCHES = NARROW_LAUNCHES = 0
     for key in IMPL_MODE_LAUNCHES:
         IMPL_MODE_LAUNCHES[key] = 0
 
@@ -83,9 +92,9 @@ def resolve_impl(stream_impl) -> str:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stream")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.stream_launch.argtypes = [i32, i32, vp, i64, vp, vp, i32, i32, i32,
+    lib.stream_launch.argtypes = [i32, i32, i32, vp, i64, vp, vp, i32, i32,
                                   i32, i32, i32, i32, i32, i32, i32, i32,
-                                  i32, i64, vp]
+                                  i32, i32, i64, vp]
     lib.stream_launch.restype = i32
     lib.stream_error_string.argtypes = [i32]
     lib.stream_error_string.restype = ctypes.c_char_p
@@ -96,6 +105,21 @@ def _lib() -> ctypes.CDLL:
 def _sms(index: int) -> int:
     """SMs of CUDA device ``index``, the wave width of the tile choice."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_out_dtype(g: torch.Tensor, mode: str, out_dtype) -> torch.dtype:
+    """The output dtype of a K1/K4/K5 launch over ``g``: ``g.dtype``
+    (``None``), or int64 from an int32 operand in the core and forward
+    modes, whose int32 sums the kernel stores widened; any other pair
+    raises."""
+    if out_dtype is None or out_dtype == g.dtype:
+        return g.dtype
+    if (g.dtype, out_dtype) == (torch.int32, torch.int64) \
+            and mode != "inverse":
+        return out_dtype
+    raise TypeError(f"a {g.dtype} operand in {mode!r} mode stores "
+                    f"{g.dtype}, or int64 from int32 in the core and "
+                    f"forward modes, not {out_dtype}")
 
 
 def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
@@ -130,12 +154,13 @@ def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
 
 def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                m_block: int, corr: torch.Tensor | None = None,
-               row_offset: int = 0, stream_impl: str | None = None
-               ) -> torch.Tensor:
+               row_offset: int = 0, stream_impl: str | None = None,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Run the streamed kernel over ``g`` (B, rows, N), already in the
-    accumulator dtype, in strips of ``stream_rows`` rows.
+    dtype it sums in, in strips of ``stream_rows`` rows.
 
-    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise.  A
+    Returns (B, N+1, N) in ``forward`` mode and (B, N, N) otherwise, in
+    ``out_dtype`` (:func:`check_out_dtype`; default ``g.dtype``).  A
     CUDA operand launches K4 (``stream_impl="grid"``) or K5 (``"dma"``,
     the default) once on the current stream, raising if the launch is
     refused; a CPU operand takes :func:`stream_plain`.
@@ -145,7 +170,7 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
     if g.device.type == "cpu":
         return stream_plain(g, sign=sign, mode=mode,
                             stream_rows=stream_rows, corr=corr,
-                            row_offset=row_offset)
+                            row_offset=row_offset, out_dtype=out_dtype)
     if g.device.type != "cuda":
         raise RuntimeError(f"K4/K5 run on CUDA or CPU tensors, not "
                            f"{g.device}")
@@ -155,33 +180,37 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                        out_rows, impl, batch=max(1, b),
                        sms=_sms(g.device.index or 0))
     return stream_launch_tile(g, tile, sign=sign, mode=mode, corr=corr,
-                              row_offset=row_offset, stream_impl=impl)
+                              row_offset=row_offset, stream_impl=impl,
+                              out_dtype=out_dtype)
 
 
 def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
                        mode: str, corr: torch.Tensor | None = None,
                        row_offset: int = 0,
-                       stream_impl: str | None = None) -> torch.Tensor:
+                       stream_impl: str | None = None,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Launch the streamed kernel over the CUDA operand ``g`` with an
     explicit ``tile`` (:func:`stream_raw` passes
     :func:`.tuning.stream_tile`'s; ``chip_smoke.py`` times others).  The
     kernel checks the tile against its own constants and budgets and
     the launch raises if it is refused."""
-    global LAUNCHES
+    global LAUNCHES, NARROW_LAUNCHES
     impl = resolve_impl(stream_impl)
     _check(g, sign, mode, corr, tile.stage_rows, tile.m_block)
+    out_dtype = check_out_dtype(g, mode, out_dtype)
     if g.device.type != "cuda":
         raise RuntimeError(f"the streamed kernel launches on CUDA tensors, "
                            f"not {g.device}")
     b, rows, n = g.shape
     out_rows = n + 1 if mode == "forward" else n
-    out = torch.empty((b, out_rows, n), dtype=g.dtype, device=g.device)
+    out = torch.empty((b, out_rows, n), dtype=out_dtype, device=g.device)
     if b == 0:
         return out
     lib = _lib()
     cuda_stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.stream_launch(
-        _IMPLS[impl], _DTYPES[g.dtype], g.data_ptr(), g.stride(0),
+        _IMPLS[impl], _DTYPES[g.dtype], _DTYPES[out_dtype], g.data_ptr(),
+        g.stride(0),
         None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
         n, out_rows, tile.m_block, tile.warps, tile.cols, tile.items,
         tile.stage_rows, tile.slots, int(sign), _MODES[mode],
@@ -194,17 +223,21 @@ def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
     with _build.COUNT_LOCK:
         LAUNCHES += 1
         IMPL_MODE_LAUNCHES[(impl, mode)] += 1
+        NARROW_LAUNCHES += out_dtype != g.dtype
     _build.note_launch("stream", tile)
     return out
 
 
 def stream_plain(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
-                 corr: torch.Tensor | None = None,
-                 row_offset: int = 0) -> torch.Tensor:
+                 corr: torch.Tensor | None = None, row_offset: int = 0,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch version of K4/K5 (any device), in the streamed
     structure: for each strip of ``min(stream_rows, rows)`` rows, gather
     its partial skew-sum at the strip's global rows into one accumulator
-    and place its row sums; the inverse epilogue runs once at the end."""
+    in ``g.dtype`` and place its row sums; the inverse epilogue runs
+    once at the end; the result is stored in ``out_dtype``, as the
+    kernel stores it."""
+    out_dtype = check_out_dtype(g, mode, out_dtype)
     b, rows, n = g.shape
     dev = g.device
     h = max(1, min(int(stream_rows), rows))
@@ -230,7 +263,7 @@ def stream_plain(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
             keep = (glob >= 0) & (glob < n)
             acc[:, n, glob[keep]] += strip.sum(2, dtype=g.dtype)[:, keep]
     if mode != "inverse":
-        return acc
+        return acc.to(out_dtype)
     total = acc + corr[:, :, None]
     if g.dtype.is_floating_point:
         return total / n
