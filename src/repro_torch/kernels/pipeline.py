@@ -59,7 +59,7 @@ from .tuning import PipelineTile, pipeline_tile, tail_tile
 __all__ = ["PIPELINE_OPS", "pipeline_raw", "pipeline_launch_tile",
            "pipeline_plain", "pipeline_tail_raw", "pipeline_tail_launch_tile",
            "pipeline_tail_plain", "OP_LAUNCHES", "TAIL_OP_LAUNCHES",
-           "reset_launch_counts"]
+           "CONV_KERNEL_FORWARDS", "reset_launch_counts"]
 
 PIPELINE_OPS = ("none", "mul", "conv")
 _OPS = {"none": 0, "mul": 1, "conv": 2}
@@ -74,9 +74,15 @@ OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
 #: memsets and one kernel launch).  Only
 #: :func:`pipeline_tail_launch_tile` adds.
 TAIL_OP_LAUNCHES = {op: 0 for op in PIPELINE_OPS}
+#: forwards of a kernel image that ``radon.Conv2D`` computed on a call,
+#: to hand K2 the kernel's projections for a batched stack.  Only
+#: ``Conv2D.__call__`` adds, once per such call.
+CONV_KERNEL_FORWARDS = 0
 
 
 def reset_launch_counts() -> None:
+    global CONV_KERNEL_FORWARDS
+    CONV_KERNEL_FORWARDS = 0
     for counts in (OP_LAUNCHES, TAIL_OP_LAUNCHES):
         for op in counts:
             counts[op] = 0

@@ -56,12 +56,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..core.dprt import accum_dtype_for, as_dtype, dtype_name
 from ..core.plan import (RadonPlan, _canonical_method,
                          _mesh_for_description, _topology_token as
                          _mesh_token, add_plan_evict_hook, get_plan)
-from ..kernels import _build
+from ..kernels import _build, pipeline as _kernel_pipeline
 from . import ambient
 from .autodiff import (_CACHE_LOCK, INVERSE_OF, TRANSPOSE_OF, apply_plan,
                        trace_count)
@@ -72,6 +73,12 @@ __all__ = ["DPRT", "Conv2D", "ProjectionFilter", "FusedProjectionPipeline",
            "conv2d_from_description", "projection_filter_from_numpy",
            "Executable", "Lowered", "aot_cache_info", "aot_cache_clear",
            "PersistentAOTCache", "aot_fingerprint"]
+
+
+#: the profiler spans of ``Conv2D`` on a batched stack: the forward of the
+#: kernel image, then the fused pipeline (K2) against its projections
+CONV_KERNEL_SPAN = "repro_torch.conv2d.kernel_projections"
+CONV_PIPELINE_SPAN = "repro_torch.conv2d.pipeline"
 
 
 # ---------------------------------------------------------------------------
@@ -1059,11 +1066,17 @@ class Conv2D(_AOTSurface):
         g = self.plan.geometry
         kernel = self.kernel.to(f.device)
         if g.native:
-            if g.batched:   # one forward of the kernel serves the stack
-                p = g.prime
+            if not g.batched:
+                return pipeline_apply(self.plan, f, "conv", kernel)
+            # one forward of the kernel serves the stack; the spans let a
+            # profile split the call's device time between the two
+            p = g.prime
+            with record_function(CONV_KERNEL_SPAN):
                 kernel = DPRT((p, p), self.dtype, self.plan.method,
                               **self._knob_kwargs())(kernel)
-            return pipeline_apply(self.plan, f, "conv", kernel)
+            _kernel_pipeline.CONV_KERNEL_FORWARDS += 1
+            with record_function(CONV_PIPELINE_SPAN):
+                return pipeline_apply(self.plan, f, "conv", kernel)
         # non-native: the true (H, W)-torus convolution = fold of the
         # exact linear convolution; the plan's knobs travel via an
         # ambient scope, which conv resolves per call
