@@ -262,14 +262,15 @@ _KERNELS = ("stream_kernel", "sfdprt_kernel", "pipeline_kernel",
 
 def _instance(mangled: str):
     """(kernel, dtype name, variant) of a mangled kernel instantiation --
-    dtype "int32>int64" where an int32 operand stores int64 outputs;
+    dtype "int32>int64" where an int32 operand stores int64 outputs,
+    "int32>int64 gated" for the streamed kernel's narrow inverse;
     variant "grid"/"dma" for the streamed kernel, "K=<cols>" for K1, K2
     and K3, "" otherwise -- else None."""
     m = re.search(r"(" + "|".join(_KERNELS) + r")I([ilfd])(?:Li(\d+)E)?"
-                  r"([ilfd])?", mangled)
+                  r"([ilfd])?(?:Lb([01])E)?", mangled)
     if m is None:
         return None
-    kernel, code, v, out = m.groups()
+    kernel, code, v, out, narrow = m.groups()
     if kernel == "stream_kernel":
         variant = ("grid", "dma")[int(v)]
     else:
@@ -277,6 +278,8 @@ def _instance(mangled: str):
     dtype = _TYPES[code]
     if out not in (None, code):
         dtype = f"{dtype}>{_TYPES[out]}"
+    if narrow == "1":
+        dtype += " gated"
     return kernel, dtype, variant
 
 
@@ -1391,8 +1394,39 @@ def stream_kernel_phase() -> dict:
                     fail(f"streamed {impl} {mode} at H={h} launched "
                          f"{ST.LAUNCHES - before[0]} streamed and "
                          f"{S.LAUNCHES - before[1]} K1 kernels, not 1 and 0")
+    # the gated inverse of int64 operands: a batch of one image of uint8
+    # projections, one spread over 2**40 and one at the gate's edge, per
+    # impl, against today's int64 kernel (no bounds) and the plain pair
+    for n2 in (13, 61, 251):
+        proj = S.dprt_raw(make(torch.int64, (1, n2, n2), 0, 256),
+                          m_block=16, stream_rows=7)
+        lo, span = -2 ** 31, (2 ** 32 - 1) // n2
+        r = torch.cat([proj, make(torch.int64, (1, n2 + 1, n2), -2 ** 40,
+                                  2 ** 40),
+                       make(torch.int64, (1, n2 + 1, n2), lo,
+                            lo + span + 1)])
+        r[2, 0, 0], r[2, 1, 1] = lo, lo + span
+        corr = (r[:, n2] - r[:, 0].sum(1, keepdim=True)).contiguous()
+        plain = S.idprt_raw(r.cpu(), m_block=16, stream_rows=7).to(dev)
+        for impl in ST.STREAM_IMPLS:
+            ST.reset_launch_counts()
+            got = S.idprt_raw(r, m_block=16, stream_rows=7,
+                              stream_impl=impl)
+            want = ST.stream_raw(r[:, :n2], sign=-1, mode="inverse",
+                                 stream_rows=7, m_block=16, corr=corr,
+                                 stream_impl=impl)
+            torch.cuda.synchronize()
+            images = ST.narrow_inverse_images(dev)
+            if (not torch.equal(got, want) or not torch.equal(got, plain)
+                    or images != 2 or ST.LAUNCHES != 3):
+                fail(f"gated inverse {impl} N={n2}: equal to the int64 "
+                     f"kernel {torch.equal(got, want)}, to the plain pair "
+                     f"{torch.equal(got, plain)}, {images} narrow images "
+                     f"(2), {ST.LAUNCHES} launches (3)")
+            cases += 1
     log(f"stream kernel phase: {cases} cases agree with the plain version "
-        f"(max |err| by impl,mode: {worst}); one launch per call at H=7, 14")
+        f"(max |err| by impl,mode: {worst}); one launch per call at H=7, "
+        f"14; the gated inverse equals the int64 kernel at N = 13, 61, 251")
     return worst
 
 
@@ -1462,11 +1496,13 @@ def giant_main_path_phase() -> dict:
     launches = {key: v for key, v in ST.IMPL_MODE_LAUNCHES.items() if v}
     k1, k2 = dict(S.MODE_LAUNCHES), dict(P.OP_LAUNCHES)
     narrow = ST.NARROW_LAUNCHES
+    gated = (ST.NARROW_INVERSE_LAUNCHES, ST.narrow_inverse_images(dev))
 
-    # serve: 1 warm + SERVE_ITERS each way; then N=2053, uint8, the
-    # gradient's forward and adjoint (core), the staged mul pipeline
+    # serve: 1 warm + SERVE_ITERS each way; then N=2053, uint8 (its
+    # inverse the gated pair of two launches), the gradient's forward and
+    # adjoint (core), the staged mul pipeline
     want = {("dma", "forward"): 1 + SERVE_ITERS + 1 + 1 + 1 + 1,
-            ("dma", "inverse"): 1 + SERVE_ITERS + 1 + 1 + 1,
+            ("dma", "inverse"): 1 + SERVE_ITERS + 1 + 2 + 1,
             ("dma", "core"): 1,
             ("grid", "forward"): 1, ("grid", "inverse"): 1,
             ("grid", "core"): 1}
@@ -1478,6 +1514,9 @@ def giant_main_path_phase() -> dict:
     if narrow != 1:  # the uint8 forward sums in int32, nothing else does
         fail(f"{narrow} streamed launches stored int32 sums as int64 on "
              f"the giant-N path, not 1 (the uint8 forward)")
+    if gated != (1, 1):  # the uint8 inverse: one gated call, one image
+        fail(f"gated inverse calls / images {gated} on the giant-N path, "
+             f"not (1, 1) (the uint8 inverse)")
     if radon.trace_count(kind="kernel") != kernel_builds:
         fail("the giant-N path rebuilt a kernel")
     log(f"giant-N path: streamed launches {launches}, K1 0, K2 0, zero "
@@ -1519,10 +1558,11 @@ def giant_main_path_phase() -> dict:
         fail("the streamed mul pipeline differs from op.inverse(w * op(f))")
     log(f"giant-N path: N={n} B={b} serve round trip exact (K5) and equal "
         f"to K4's; N={n2} oracle rows 0, 1, N-1, N and round trip exact; "
-        f"uint8 N={n} (int32 sums, int64 out) round trip exact; float32 "
+        f"uint8 N={n} (int32 sums, int64 out; the inverse gated to int32 "
+        f"sums) round trip exact; float32 "
         f"grad == op.T; "
         f"streamed mul pipeline exact")
-    return {**launches, "int32>int64": narrow}
+    return {**launches, "int32>int64": narrow, "gated inverse": gated[0]}
 
 
 def sm_clock_mhz() -> tuple:
@@ -1533,6 +1573,15 @@ def sm_clock_mhz() -> tuple:
         timeout=60, check=True).stdout.splitlines()[0]
     cur, top = (float(v) for v in out.split(","))
     return cur, top
+
+
+def stream_bound(nbytes, ops) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` at HBM
+    bandwidth and ``ops`` int32 operations at the card's rate."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_ADDS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
 
 
 def stream_timing_phase(launches: dict, worst: dict) -> list:
@@ -1578,12 +1627,6 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     replaces = {"grid": "src/repro/kernels/sfdprt.py:396",
                 "dma": "src/repro/kernels/sfdprt.py:457"}
 
-    def bound(nbytes, ops):
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops / INT32_ADDS_PER_S
-        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                       else "operations")
-
     def design(t, impl, batch, dtype):
         return {"directions_per_block": t.m_block, "cols_per_lane": t.cols,
                 "items_per_warp": t.items, "consumer_warps": t.warps,
@@ -1619,7 +1662,7 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
                 x, stream_rows=sr, m_block=mb, stream_impl=impl, **kw),
                 reps=GIANT_TIMING_REPS, warm=1)
             clock = sm_clock_mhz()[0]
-            b_ms, by = bound(4 * elems, ops)
+            b_ms, by = stream_bound(4 * elems, ops)
             rows.append({
                 "name": f"stream_kernel[{impl},{mode}]",
                 "route": "cuda",
@@ -1708,7 +1751,7 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     clock = sm_clock_mhz()[0]
     p_ms = cuda_ms(lambda: ST.stream_plain(u, sign=1, mode="forward",
                                            stream_rows=sr), reps=1, warm=0)
-    b_ms, by = bound(8 * (n * n + (n + 1) * n), 2 * (n ** 3 + n * n))
+    b_ms, by = stream_bound(8 * (n * n + (n + 1) * n), 2 * (n ** 3 + n * n))
     rows.append({
         "name": "stream_kernel[dma,forward,int64]",
         "route": "cuda",
@@ -1744,7 +1787,7 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
     p_ms = b * cuda_ms(lambda: ST.stream_plain(
         u4[:1], sign=1, mode="forward", stream_rows=sr,
         out_dtype=torch.int64), reps=1, warm=0)
-    b_ms, by = bound(b * (4 * n * n + 8 * (n + 1) * n), b * (n ** 3 + n * n))
+    b_ms, by = stream_bound(b * (4 * n * n + 8 * (n + 1) * n), b * (n ** 3 + n * n))
     rows.append({
         "name": "stream_kernel[dma,forward,int32>int64]",
         "route": "cuda",
@@ -1769,6 +1812,136 @@ def stream_timing_phase(launches: dict, worst: dict) -> list:
         f"{rows[-1]['adds_per_clock_per_sm']:.2f} adds/clock/SM, rereads "
         f"{rows[-1]['reread_tb_s']:.2f} TB/s)")
     return rows
+
+
+#: what ptxas reported for the forward's ``stream_kernel<int, 1, long>``
+#: (registers, spill store bytes, spill load bytes) before the narrow
+#: inverse (nvcc for sm_90a on an H100 host)
+K5_FORWARD_PTXAS_BEFORE = {"regs": 128, "spill_stores": 0, "spill_loads": 0}
+
+
+def narrow_inverse_phase(launches: dict) -> list:
+    """The gated inverse at the benchmark's shape (N = 4099, B = 4,
+    stream_rows 256): on the int64 projections of uint8 images, the
+    whole call beside today's int64 kernel, and its parts -- the pass
+    over the operand, the narrow launch, the int64 launch whose blocks
+    all exit; on a batch of wide int64 values, which no gate passes, the
+    whole call beside the int64 kernel (the pass and the narrow launch
+    whose blocks all exit are then overhead); exact against the int64
+    kernel, 4 and 0 narrow images a call; ptxas's registers of the
+    forward's instantiation (failing if they changed) and of the narrow
+    variant."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sfdprt as S
+    from repro_torch.kernels import stream as ST
+    from repro_torch.kernels.tuning import pallas_block_spec, stream_tile
+
+    n, b, sr = GIANT_N, GIANT_BATCH, GIANT_STREAM_ROWS
+    _, mb = pallas_block_spec(n)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptx = ptxas_report("stream")
+    fwd = ptx.get(("stream_kernel", "int32>int64", "dma"))
+    gate = ptx.get(("stream_kernel", "int32>int64 gated", "dma"))
+    log(f"ptxas stream_kernel<int, 1, long> (the forward): before "
+        f"{K5_FORWARD_PTXAS_BEFORE}, now {fwd}; the narrow inverse "
+        f"stream_kernel<int, 1, long, true>: {gate}")
+    if fwd != K5_FORWARD_PTXAS_BEFORE:
+        fail(f"the forward's instantiation changed: {fwd}, before "
+             f"{K5_FORWARD_PTXAS_BEFORE}")
+    u8 = torch.from_numpy(np.random.default_rng(15).integers(
+        0, 256, (b, n, n), dtype=np.uint8)).to(dev)
+    r = S.dprt_raw(u8, m_block=mb, stream_rows=sr)
+    wide = torch.from_numpy(np.random.default_rng(16).integers(
+        -2 ** 40, 2 ** 40, (b, n + 1, n), dtype=np.int64)).to(dev)
+    kw = dict(sign=-1, mode="inverse", stream_rows=sr, m_block=mb)
+    parts = {}
+    for name, x, narrow_images in (("uint8", r, b), ("wide", wide, 0)):
+        g = x[:, :n]
+        corr = (x[:, n] - x[:, 0].sum(1, keepdim=True)).contiguous()
+        ST.reset_launch_counts()
+        got = S.idprt_raw(x, m_block=mb, stream_rows=sr)
+        want = ST.stream_raw(g, corr=corr, **kw)
+        torch.cuda.synchronize()
+        images = ST.narrow_inverse_images(dev)
+        if (not torch.equal(got, want) or images != narrow_images
+                or (name == "uint8" and not torch.equal(got, u8.long()))):
+            fail(f"the gated inverse of {name} int64 values at N={n} B={b} "
+                 f"is not the int64 kernel's bits ({images} narrow images, "
+                 f"not {narrow_images})")
+        parts[name] = (g, corr)
+    g, corr = parts["uint8"]
+    bounds = torch.stack([g.amin((1, 2)), g.amax((1, 2))]).contiguous()
+    low = g.to(torch.int32)
+    kw["corr"] = corr
+
+    def prep():
+        bd = torch.empty((2, b), dtype=torch.int64, device=dev)
+        torch.aminmax(g.flatten(1), dim=1, out=(bd[0], bd[1]))
+        return g.to(torch.int32)
+
+    wg, wcorr = parts["wide"]
+    timed = {
+        "gated_call": lambda: S.idprt_raw(r, m_block=mb, stream_rows=sr),
+        "int64_kernel": lambda: ST.stream_raw(g, **kw),
+        "prep": prep,
+        "narrow_launch": lambda: ST.stream_raw(
+            low, bounds=bounds, out_dtype=torch.int64, **kw),
+        "int64_exit_only": lambda: ST.stream_raw(g, bounds=bounds, **kw),
+        "wide_gated_call": lambda: S.idprt_raw(wide, m_block=mb,
+                                               stream_rows=sr),
+        "wide_int64_kernel": lambda: ST.stream_raw(wg, **dict(kw,
+                                                               corr=wcorr)),
+    }
+    ms = {k: cuda_ms(fn, reps=GIANT_TIMING_REPS, warm=1)
+          for k, fn in timed.items()}
+    clock = sm_clock_mhz()[0]
+    # the plain pair (narrow half, then int64 half) on one image, x B
+    b1 = bounds[:, :1].contiguous()
+    kw1 = dict(sign=-1, mode="inverse", stream_rows=sr, corr=corr[:1],
+               bounds=b1)
+    p_ms = b * cuda_ms(lambda: ST.stream_plain(
+        g[:1], out=ST.stream_plain(low[:1], out_dtype=torch.int64, **kw1),
+        **kw1), reps=1, warm=0)
+    log(f"timing gated inverse N={n} B={b}: uint8 projections (int64) "
+        f"{ms['gated_call']:.4f} ms against the int64 kernel's "
+        f"{ms['int64_kernel']:.4f} ms; wide int64 values "
+        f"{ms['wide_gated_call']:.4f} ms against "
+        f"{ms['wide_int64_kernel']:.4f} ms (the gate's overhead "
+        f"{ms['wide_gated_call'] - ms['wide_int64_kernel']:.4f} ms); all "
+        f"parts {ms}; plain pair (B=1 x {b}) {p_ms:.4f} ms; {clock:.0f} "
+        f"MHz")
+    if ms["int64_exit_only"] > 0.5:
+        fail(f"the int64 launch whose blocks all exit took "
+             f"{ms['int64_exit_only']:.4f} ms")
+    t = stream_tile(n, n, 4, sr, mb, n, "dma", batch=b, sms=sms)
+    # the pass reads the int64 operand and writes its low 32 bits; the
+    # narrow launch reads those and corr and stores int64; int32 adds
+    nbytes = b * (8 * n * n + 4 * n * n + 4 * n * n + 8 * n + 8 * n * n)
+    b_ms, by = stream_bound(nbytes, b * (n ** 3 + 2 * n * n))
+    return [{
+        "name": "stream_kernel[dma,inverse,int64 gated to int32]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
+        "replaces": "src/repro/kernels/sfdprt.py:457",
+        "launches": launches.get("gated inverse", 0),
+        "launches_note": "gated calls on the giant-N main path",
+        "max_abs_err": 0.0,
+        "ms": ms["gated_call"],
+        "parts_ms": ms,
+        "plain_ms": p_ms,
+        "plain_ms_note": "B=1 run of the plain pair x B",
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": f"N={n} B={b} uint8 projections (int64), stream_rows={sr}",
+        "design": {"directions_per_block": t.m_block, "cols_per_lane": t.cols,
+                   "consumer_warps": t.warps, "stage_rows": t.stage_rows,
+                   "ring_slots": t.slots, "blocks": b * t.blocks,
+                   "ptxas": gate, "ptxas_forward": fwd},
+        "sm_clock_mhz": clock,
+    }]
 
 
 # ---------------------------------------------------------------------------
@@ -4831,6 +5004,7 @@ def main() -> int:
                            pipe_launches["k1"]["forward"])
     kernels += pipeline_timing_phase(pipe_launches, pipe_worst)
     kernels += stream_timing_phase(giant_launches, stream_worst)
+    kernels += narrow_inverse_phase(giant_launches)
     kernels += tail_timing_phase(mesh_launches, tail_worst)
     kernels += solve_timing_phase(solve_info)
     mark_mesh_service_launches(kernels, serving["mesh_service"])

@@ -43,6 +43,21 @@
 // widens: static_cast<O>(static_cast<T>(sum)), the wrapped unsigned sum
 // read back as signed 32-bit first, so a negative int16 sum sign-extends.
 //
+// The inverse of int64 projections needs no 8-byte sums either wherever
+// the values allow it, which the host cannot know without waiting on the
+// device, so each block decides for its image (kernels/stream.py:
+// inverse_gated).  The host hands the operand's low 32 bits as an int32
+// operand and bounds[b] = lo_b, bounds[B + b] = hi_b, the least and the
+// largest value of image b.  An output sums N of them, so its true sum
+// lies in [N lo_b, N hi_b]; where N (hi_b - lo_b) < 2^32 (and lo_b, hi_b
+// fit int32) that interval holds fewer than 2^32 integers, and the
+// wrapped 32-bit sum fixes it: true = N lo_b + (uint32)(sum - N lo_b).
+// The narrow variant (T = int32, O = int64, int64 corr, kNarrow) runs the
+// 4-byte tile on the images that pass (narrow_fits) and returns at entry
+// for the others; the int64 instantiation, given the same bounds, runs
+// only the others; the epilogue rebuilds the sum in 64 bits, adds corr
+// and floor-divides as the int64 route does, so both store the same bits.
+//
 // Design.  One thread block per (image b, block of D output rows), with
 // `warps` consumer warps; the block owns all N columns of its rows,
 // because output (m, d) reads g[i, <d + sign*m*(off+i)>_N], which can be
@@ -189,6 +204,22 @@ __device__ __forceinline__ T divide_by_n(T total, int n) {
 __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
+
+// Whether image b of `batch` sums exactly in 32 bits (see the head of the
+// file): its values fit int32 and N (hi - lo) < 2^32.  The first two tests
+// bound hi - lo to (-2^32, 2^32), so nothing overflows.
+__device__ __forceinline__ bool narrow_fits(const int64_t* bounds, int b,
+                                            int batch, int n) {
+  const int64_t lo = bounds[b];
+  const int64_t hi = bounds[batch + b];
+  return lo >= INT32_MIN && hi <= INT32_MAX &&
+         hi - lo <= static_cast<int64_t>(UINT32_MAX) / n;
+}
+
+// The type of the inverse's correction: the operand's, or int64 in the
+// narrow variant.
+template <typename T, bool kNarrow>
+using corr_t = typename std::conditional<kNarrow, int64_t, T>::type;
 
 // What the host decided (kernels/tuning.py:stream_tile) plus what follows
 // from it; checked by stream_launch before any launch.
@@ -438,12 +469,19 @@ __device__ __forceinline__ void sum_stage(
   }
 }
 
-template <typename T, int kImpl, typename O = T>
+// bounds: nullptr, or the (2, B) per-image least and largest values of the
+// inverse's int64 operand, which gate the narrow variant (kNarrow) and the
+// int64 instantiation (see the head of the file); tally: the count of
+// images the narrow variant ran, one atomic add per image.
+template <typename T, int kImpl, typename O = T, bool kNarrow = false>
 __global__ void __launch_bounds__((kWarps<kImpl> + (kImpl == kDma ? 1 : 0)) *
                                       32,
                                   1)
-stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
-              O* __restrict__ out, const Geometry geo) {
+stream_kernel(const T* __restrict__ g,
+              const corr_t<T, kNarrow>* __restrict__ corr,
+              O* __restrict__ out, const Geometry geo,
+              const int64_t* __restrict__ bounds,
+              unsigned long long* __restrict__ tally) {
   using U = arith_t<T>;
   constexpr int K = Shape<sizeof(T)>::kCols;
   constexpr int I = Shape<sizeof(T)>::kItems;
@@ -456,6 +494,17 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
   const int n = geo.n;
   const int b = blockIdx.x / geo.n_dblocks;
   const int m0 = (blockIdx.x - b * geo.n_dblocks) * geo.dirs;
+  // the gate: every thread of the block reads the same bounds, so the
+  // whole block returns, before any barrier, copy or producer work
+  if constexpr (kNarrow) {
+    if (!narrow_fits(bounds, b, gridDim.x / geo.n_dblocks, n)) return;
+    if (m0 == 0 && threadIdx.x == 0) atomicAdd(tally, 1ull);
+  } else if constexpr (std::is_same<T, int64_t>::value) {
+    if (bounds != nullptr &&
+        narrow_fits(bounds, b, gridDim.x / geo.n_dblocks, n)) {
+      return;  // the narrow variant summed this image
+    }
+  }
   const int m_count = min(geo.dirs, geo.out_rows - m0);
   const int m_skew = max(0, min(m_count, n - m0));  // rows m < N
   const bool owns_row_sums =
@@ -580,18 +629,38 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
       const int q = q0 + u;
       const int m = m0 + q / geo.runs;
       const int c = q - (q / geo.runs) * geo.runs;
-      const U cm = geo.mode == kInverse
-                       ? static_cast<U>(corr[static_cast<long long>(b) * n + m])
-                       : U(0);
       O* const orow = ob + static_cast<long long>(m) * n;
+      if constexpr (kNarrow) {
+        // the true sum from its low 32 bits, N lo_b + (uint32)(sum - N
+        // lo_b), plus corr, in the wrapping 64-bit arithmetic of the int64
+        // route (N lo_b fits: |lo_b| <= 2^31, N < 2^16)
+        const uint64_t base =
+            static_cast<uint64_t>(static_cast<int64_t>(n) * bounds[b]);
+        const uint64_t lead =
+            base +
+            static_cast<uint64_t>(corr[static_cast<long long>(b) * n + m]);
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const int d = c * 32 * K + lane + 32 * j;
-        if (d < n) {
-          orow[d] = static_cast<O>(
-              geo.mode == kInverse
-                  ? divide_by_n(static_cast<T>(acc[u][j] + cm), n)
-                  : static_cast<T>(acc[u][j]));
+        for (int j = 0; j < K; ++j) {
+          const int d = c * 32 * K + lane + 32 * j;
+          if (d < n) {
+            const uint32_t rise = acc[u][j] - static_cast<uint32_t>(base);
+            orow[d] = divide_by_n(static_cast<int64_t>(lead + rise), n);
+          }
+        }
+      } else {
+        const U cm =
+            geo.mode == kInverse
+                ? static_cast<U>(corr[static_cast<long long>(b) * n + m])
+                : U(0);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int d = c * 32 * K + lane + 32 * j;
+          if (d < n) {
+            orow[d] = static_cast<O>(
+                geo.mode == kInverse
+                    ? divide_by_n(static_cast<T>(acc[u][j] + cm), n)
+                    : static_cast<T>(acc[u][j]));
+          }
         }
       }
     }
@@ -605,9 +674,10 @@ stream_kernel(const T* __restrict__ g, const T* __restrict__ corr,
   }
 }
 
-template <typename T, int kImpl, typename O>
+template <typename T, int kImpl, typename O, bool kNarrow>
 int launch(const void* g, const void* corr, void* out, int batch,
-           Geometry geo, cudaStream_t stream) {
+           Geometry geo, const void* bounds, void* tally,
+           cudaStream_t stream) {
   const long long blocks = static_cast<long long>(batch) * geo.n_dblocks;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = kBarrierBytes + static_cast<size_t>(geo.slots) *
@@ -615,26 +685,29 @@ int launch(const void* g, const void* corr, void* out, int batch,
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<T, kImpl, O>,
+        stream_kernel<T, kImpl, O, kNarrow>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = (geo.warps + (kImpl == kDma ? 1 : 0)) * 32;
-  stream_kernel<T, kImpl, O>
+  stream_kernel<T, kImpl, O, kNarrow>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-          static_cast<const T*>(g), static_cast<const T*>(corr),
-          static_cast<O*>(out), geo);
+          static_cast<const T*>(g),
+          static_cast<const corr_t<T, kNarrow>*>(corr), static_cast<O*>(out),
+          geo, static_cast<const int64_t*>(bounds),
+          static_cast<unsigned long long*>(tally));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Fill in what follows from the host's choice and check it against this
 // instantiation's Shape and the budgets.
-template <typename T, typename O = T>
+template <typename T, typename O = T, bool kNarrow = false>
 int launch_checked(int impl, const void* g, long long g_bstride,
                    const void* corr, void* out, int batch, int rows, int n,
                    int out_rows, int dirs, int warps, int cols, int items,
                    int stage_rows, int slots, int sign, int mode,
-                   long long row_offset, cudaStream_t s) {
+                   long long row_offset, const void* bounds, void* tally,
+                   cudaStream_t s) {
   constexpr int K = Shape<sizeof(T)>::kCols;
   constexpr int I = Shape<sizeof(T)>::kItems;
   Geometry geo;
@@ -666,61 +739,84 @@ int launch_checked(int impl, const void* g, long long g_bstride,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (impl == kGrid) {
-    return launch<T, kGrid, O>(g, corr, out, batch, geo, s);
+    return launch<T, kGrid, O, kNarrow>(g, corr, out, batch, geo, bounds,
+                                        tally, s);
   }
-  return launch<T, kDma, O>(g, corr, out, batch, geo, s);
+  return launch<T, kDma, O, kNarrow>(g, corr, out, batch, geo, bounds, tally,
+                                     s);
 }
 
 }  // namespace
 
 // dtype, out_dtype: 0 int32, 1 int64, 2 float32, 3 float64, the operand's
-// and the output's, equal or int32 -> int64 outside the inverse mode; impl:
-// 0 grid (K4), 1 dma (K5); dirs, warps, cols, items, stage_rows, slots: the
-// tile of kernels/tuning.py:stream_tile.  Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// and the output's, equal or int32 -> int64; impl: 0 grid (K4), 1 dma
+// (K5); dirs, warps, cols, items, stage_rows, slots: the tile of
+// kernels/tuning.py:stream_tile.  bounds, tally: nullptr, or in inverse
+// mode the (2, B) int64 bounds of the operand's images (see the head of
+// the file): an int32 operand with an int64 output and int64 corr runs
+// the narrow variant on the images that pass and adds them to *tally; an
+// int64 operand runs the others.  int32 -> int64 outside the inverse mode
+// takes no bounds.  Returns a cudaError_t (0 on success); the launch is
+// asynchronous on `stream`.
 extern "C" int stream_launch(int impl, int dtype, int out_dtype,
                              const void* g, long long g_bstride,
                              const void* corr, void* out,
                              int batch, int rows, int n, int out_rows,
                              int dirs, int warps, int cols, int items,
                              int stage_rows, int slots, int sign, int mode,
-                             long long row_offset, void* stream) {
+                             long long row_offset, void* stream,
+                             const void* bounds, void* tally) {
   if (batch < 1 || rows < 1 || n < 1 || dirs < 1 || warps < 1 ||
       stage_rows < 1 || slots < 1 || (impl != kGrid && impl != kDma) ||
       (sign != 1 && sign != -1) || mode < kCore || mode > kInverse ||
-      (mode == kInverse && corr == nullptr)) {
+      (mode == kInverse && corr == nullptr) ||
+      (bounds != nullptr &&
+       (mode != kInverse || (dtype != 0 && dtype != 1)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype != dtype) {
-    if (dtype != 0 || out_dtype != 1 || mode == kInverse) {
+    if (dtype != 0 || out_dtype != 1) {
       return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (mode == kInverse) {
+      if (bounds == nullptr || tally == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch_checked<int32_t, int64_t, true>(
+          impl, g, g_bstride, corr, out, batch, rows, n, out_rows, dirs,
+          warps, cols, items, stage_rows, slots, sign, mode, row_offset,
+          bounds, tally, s);
     }
     return launch_checked<int32_t, int64_t>(
         impl, g, g_bstride, corr, out, batch, rows, n, out_rows, dirs, warps,
-        cols, items, stage_rows, slots, sign, mode, row_offset, s);
+        cols, items, stage_rows, slots, sign, mode, row_offset, nullptr,
+        nullptr, s);
+  }
+  if (bounds != nullptr && dtype != 1) {  // an int32 operand gated: int64 out
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (dtype) {
     case 0:
       return launch_checked<int32_t>(impl, g, g_bstride, corr, out, batch,
                                      rows, n, out_rows, dirs, warps, cols,
                                      items, stage_rows, slots, sign, mode,
-                                     row_offset, s);
+                                     row_offset, nullptr, nullptr, s);
     case 1:
       return launch_checked<int64_t>(impl, g, g_bstride, corr, out, batch,
                                      rows, n, out_rows, dirs, warps, cols,
                                      items, stage_rows, slots, sign, mode,
-                                     row_offset, s);
+                                     row_offset, bounds, nullptr, s);
     case 2:
       return launch_checked<float>(impl, g, g_bstride, corr, out, batch, rows,
                                    n, out_rows, dirs, warps, cols, items,
                                    stage_rows, slots, sign, mode, row_offset,
-                                   s);
+                                   nullptr, nullptr, s);
     case 3:
       return launch_checked<double>(impl, g, g_bstride, corr, out, batch,
                                     rows, n, out_rows, dirs, warps, cols,
                                     items, stage_rows, slots, sign, mode,
-                                    row_offset, s);
+                                    row_offset, nullptr, nullptr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

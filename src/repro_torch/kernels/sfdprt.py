@@ -39,7 +39,7 @@ import torch
 
 from ..core.dprt import accum_dtype_for, forward_sum_dtype_for
 from . import _build
-from .stream import _sms, check_out_dtype, stream_raw
+from .stream import _sms, check_out_dtype, inverse_gated, stream_raw
 from .tuning import SkewTile, skew_holds, skew_tile, stream_dma_holds
 
 __all__ = ["sfdprt", "sfdprt_launch_tile", "sfdprt_plain", "skew_sum_raw",
@@ -231,29 +231,41 @@ def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _stream_route(n: int, itemsize: int, strip_rows: int, stream_rows,
+                  stream_impl):
+    """Where a skew-sum of ``itemsize``-byte values over N columns runs:
+    None for K1, else ``(stream_rows, impl)``, the streamed kernel's
+    stage height and ``impl(width)``, the ``stream_impl`` of a launch
+    over ``width``-byte values.  The caller's ``stream_rows`` and
+    ``stream_impl`` where it gives ``stream_rows``; else, where K1
+    cannot hold one direction of N (:func:`.tuning.skew_holds`: N >
+    14336 for 4-byte sums, 7168 for 8-byte ones; the operand's width,
+    not the output's, counts), stages of at most ``strip_rows`` rows
+    through K5, or through K4 where K5's ring cannot hold two padded
+    rows of that width."""
+    if stream_rows is not None:
+        return int(stream_rows), lambda width: stream_impl
+    if skew_holds(n, itemsize):
+        return None
+    return int(strip_rows), lambda width: (
+        "dma" if stream_dma_holds(n, width) else "grid")
+
+
 def _skew(g: torch.Tensor, *, sign: int, mode: str, strip_rows: int,
           m_block: int, corr=None, row_offset=None, stream_rows=None,
           stream_impl=None, out_dtype=None) -> torch.Tensor:
-    """K1, or with ``stream_rows`` the streamed kernel K4/K5 (and then
-    K1 is not launched).  Where K1 cannot hold one direction of N
-    (:func:`.tuning.skew_holds`: N > 14336 for 4-byte sums, 7168 for
-    8-byte ones; the operand's width, not ``out_dtype``'s, counts) the
-    operand streams through K5 in stages of at most ``strip_rows``
-    rows, or through K4 where K5's ring cannot hold two padded rows:
-    the same function in one launch."""
-    n = g.shape[2]
-    if stream_rows is None and not skew_holds(n, g.element_size()):
-        stream_rows = strip_rows
-        stream_impl = ("dma" if stream_dma_holds(n, g.element_size())
-                       else "grid")
-    if stream_rows is not None:
-        return stream_raw(g, sign=sign, mode=mode,
-                          stream_rows=int(stream_rows), m_block=m_block,
-                          corr=corr, row_offset=row_offset or 0,
-                          stream_impl=stream_impl, out_dtype=out_dtype)
-    return sfdprt(g, sign=sign, mode=mode, strip_rows=strip_rows,
-                  m_block=m_block, corr=corr, row_offset=row_offset or 0,
-                  out_dtype=out_dtype)
+    """K1, or the streamed kernel K4/K5 where :func:`_stream_route` says
+    (and then K1 is not launched): the same function in one launch."""
+    route = _stream_route(g.shape[2], g.element_size(), strip_rows,
+                          stream_rows, stream_impl)
+    if route is None:
+        return sfdprt(g, sign=sign, mode=mode, strip_rows=strip_rows,
+                      m_block=m_block, corr=corr,
+                      row_offset=row_offset or 0, out_dtype=out_dtype)
+    rows, impl = route
+    return stream_raw(g, sign=sign, mode=mode, stream_rows=rows,
+                      m_block=m_block, corr=corr, row_offset=row_offset or 0,
+                      stream_impl=impl(g.element_size()), out_dtype=out_dtype)
 
 
 def skew_sum_raw(g: torch.Tensor, sign: int = 1, strip_rows: int = 16,
@@ -298,11 +310,22 @@ def idprt_raw(r: torch.Tensor, strip_rows: int = 16, m_block: int = 8,
               stream_impl: str | None = None) -> torch.Tensor:
     """Fused batched inverse DPRT: (B, N+1, N) -> (B, N, N) in one
     launch; the -S + R(N, i) correction and the floor divide by N run
-    in-kernel after the last tile (or strip, with ``stream_rows``)."""
+    in-kernel after the last tile (or strip, with ``stream_rows``).
+    Streamed int64 sums take :func:`.stream.inverse_gated` (a pass
+    over the operand and two launches, which sum each image in 32 bits
+    where its values allow it); K1's int64 inverse stays one launch."""
     n = r.shape[-1]
     acc = accum_dtype_for(r.dtype, n)
     ra = _rows_contiguous(r.to(acc))
     corr = (ra[:, n, :] - ra[:, 0, :].sum(1, keepdim=True, dtype=acc))
+    route = (_stream_route(n, 8, strip_rows, stream_rows, stream_impl)
+             if acc == torch.int64 else None)
+    if route is not None:
+        # streamed: each image sums in 32 bits where its values allow
+        rows, impl = route
+        return inverse_gated(ra[:, :n, :], corr.contiguous(),
+                             stream_rows=rows, m_block=m_block,
+                             stream_impls=(impl(4), impl(8)))
     return _skew(ra[:, :n, :], sign=-1, mode="inverse",
                  strip_rows=strip_rows, m_block=m_block,
                  corr=corr.contiguous(), stream_rows=stream_rows,

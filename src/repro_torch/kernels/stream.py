@@ -34,6 +34,15 @@ image sum in int32 and store int64 (:func:`.sfdprt.dprt_raw` asks for it
 where :func:`repro_torch.core.dprt.forward_sum_dtype_for` allows): the
 tile and the route follow the operand's 4-byte width, and the kernel
 widens each output as it stores it.
+
+:func:`inverse_gated` is the inverse of an int64 operand: it sums each
+image in 32 bits where that image's values allow it, chosen on the
+device.  One pass (the span :data:`NARROW_SPAN`) takes the per-image
+least and largest values (``bounds``) and the operand's low 32 bits;
+the narrow variant then runs the 4-byte tile on the images whose bounds
+pass the gate (:func:`narrow_fits`) and the int64 kernel, given the
+same bounds, on the others, into one output.  Both store the int64
+route's bits; no call waits on the device.
 """
 from __future__ import annotations
 
@@ -41,25 +50,37 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from . import _build
 from .tuning import StreamTile, stream_tile
 
 __all__ = ["stream_raw", "stream_launch_tile", "stream_plain",
+           "inverse_gated", "narrow_fits", "narrow_inverse_images",
            "STREAM_IMPLS", "LAUNCHES", "IMPL_MODE_LAUNCHES",
-           "NARROW_LAUNCHES", "reset_launch_counts", "check_out_dtype"]
+           "NARROW_LAUNCHES", "NARROW_INVERSE_LAUNCHES", "NARROW_SPAN",
+           "reset_launch_counts", "check_out_dtype"]
 
 STREAM_IMPLS = ("grid", "dma")
 
 #: kernel launches since the last reset; IMPL_MODE_LAUNCHES splits the
-#: same count by (stream_impl, mode), NARROW_LAUNCHES counts those whose
-#: operand is narrower than their output (int32 sums stored as int64).
-#: Only :func:`stream_launch_tile` adds to them, once per launch of the
-#: CUDA kernel.
+#: same count by (stream_impl, mode), NARROW_LAUNCHES counts those of the
+#: core and forward modes whose operand is narrower than their output
+#: (int32 sums stored as int64; the gated inverse's narrow launch is not
+#: one of them).  Only :func:`stream_launch_tile` adds to them, once per
+#: launch of the CUDA kernel.
 LAUNCHES = 0
 IMPL_MODE_LAUNCHES = {(impl, mode): 0 for impl in STREAM_IMPLS
                       for mode in ("core", "forward", "inverse")}
 NARROW_LAUNCHES = 0
+#: calls of :func:`inverse_gated` since the last reset (on any device: a
+#: CPU operand takes the plain pair)
+NARROW_INVERSE_LAUNCHES = 0
+#: the ``record_function`` span around :func:`inverse_gated`'s pass over
+#: the operand (bounds and low 32 bits)
+NARROW_SPAN = "repro_torch.inverse.narrow"
+#: device -> the int64 tally behind :func:`narrow_inverse_images`
+_TALLIES: dict = {}
 
 _IMPLS = {"grid": 0, "dma": 1}
 _MODES = {"core": 0, "forward": 1, "inverse": 2}
@@ -71,10 +92,30 @@ _PLAIN_CHUNK = 1 << 25
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES, NARROW_LAUNCHES
-    LAUNCHES = NARROW_LAUNCHES = 0
+    """Zero the host counters and, without waiting, every device tally."""
+    global LAUNCHES, NARROW_LAUNCHES, NARROW_INVERSE_LAUNCHES
+    LAUNCHES = NARROW_LAUNCHES = NARROW_INVERSE_LAUNCHES = 0
     for key in IMPL_MODE_LAUNCHES:
         IMPL_MODE_LAUNCHES[key] = 0
+    for tally in _TALLIES.values():
+        tally.zero_()
+
+
+def _tally(device: torch.device) -> torch.Tensor:
+    """The one-element int64 count of images the narrow inverse ran on
+    ``device``, made at first use."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = str(device)
+    if key not in _TALLIES:
+        _TALLIES[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _TALLIES[key]
+
+
+def narrow_inverse_images(device) -> int:
+    """Images whose gate chose 32-bit sums on ``device`` since the last
+    reset.  The tally is added to on the device; reading it waits."""
+    return int(_tally(torch.device(device)).item())
 
 
 def resolve_impl(stream_impl) -> str:
@@ -88,15 +129,19 @@ def resolve_impl(stream_impl) -> str:
     return stream_impl
 
 
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: ``csrc/stream.cu:stream_launch``'s parameters, in order
+LAUNCH_ARGTYPES = (_I32, _I32, _I32, _VP, _I64, _VP, _VP, _I32, _I32, _I32,
+                   _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                   _I64, _VP, _VP, _VP)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stream")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.stream_launch.argtypes = [i32, i32, i32, vp, i64, vp, vp, i32, i32,
-                                  i32, i32, i32, i32, i32, i32, i32, i32,
-                                  i32, i32, i64, vp]
-    lib.stream_launch.restype = i32
-    lib.stream_error_string.argtypes = [i32]
+    lib.stream_launch.argtypes = list(LAUNCH_ARGTYPES)
+    lib.stream_launch.restype = _I32
+    lib.stream_error_string.argtypes = [_I32]
     lib.stream_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -107,15 +152,23 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def check_out_dtype(g: torch.Tensor, mode: str, out_dtype) -> torch.dtype:
+def check_out_dtype(g: torch.Tensor, mode: str, out_dtype,
+                    gated: bool = False) -> torch.dtype:
     """The output dtype of a K1/K4/K5 launch over ``g``: ``g.dtype``
     (``None``), or int64 from an int32 operand in the core and forward
-    modes, whose int32 sums the kernel stores widened; any other pair
+    modes, whose int32 sums the kernel stores widened, and in the
+    inverse ``gated`` by bounds (the narrow half of
+    :func:`inverse_gated`, which stores int64 only); any other pair
     raises."""
+    widened = (g.dtype, out_dtype) == (torch.int32, torch.int64)
+    if gated and g.dtype == torch.int32:
+        if widened:
+            return out_dtype
+        raise TypeError(f"the gated inverse of an int32 operand stores "
+                        f"int64, not {out_dtype}")
     if out_dtype is None or out_dtype == g.dtype:
         return g.dtype
-    if (g.dtype, out_dtype) == (torch.int32, torch.int64) \
-            and mode != "inverse":
+    if widened and mode != "inverse":
         return out_dtype
     raise TypeError(f"a {g.dtype} operand in {mode!r} mode stores "
                     f"{g.dtype}, or int64 from int32 in the core and "
@@ -123,7 +176,7 @@ def check_out_dtype(g: torch.Tensor, mode: str, out_dtype) -> torch.dtype:
 
 
 def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
-           m_block: int) -> None:
+           m_block: int, bounds=None) -> None:
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}: {mode!r}")
     if sign not in (1, -1):
@@ -143,19 +196,38 @@ def _check(g: torch.Tensor, sign: int, mode: str, corr, stream_rows: int,
     if int(stream_rows) < 1 or int(m_block) < 1:
         raise ValueError(f"stream_rows/m_block must be >= 1, got "
                          f"{stream_rows}/{m_block}")
+    b, _, n = g.shape
+    if bounds is not None and (
+            mode != "inverse" or g.dtype not in (torch.int32, torch.int64)
+            or tuple(bounds.shape) != (2, b) or bounds.dtype != torch.int64
+            or bounds.device != g.device or not bounds.is_contiguous()):
+        raise ValueError(f"bounds gate the inverse of an int32 or int64 "
+                         f"operand: a contiguous (2, B) = (2, {b}) int64 "
+                         f"tensor on {g.device}, not {mode!r} mode over "
+                         f"{g.dtype}")
     if mode == "inverse":
-        b, _, n = g.shape
+        want = torch.int64 if bounds is not None else g.dtype
         if (corr is None or tuple(corr.shape) != (b, n)
-                or corr.dtype != g.dtype or corr.device != g.device
+                or corr.dtype != want or corr.device != g.device
                 or not corr.is_contiguous()):
             raise ValueError(f"inverse mode needs a contiguous (B, N) = "
-                             f"({b}, {n}) {g.dtype} corr on {g.device}")
+                             f"({b}, {n}) {want} corr on {g.device}")
+
+
+def _check_out(out, shape, dtype, device) -> None:
+    if out is not None and (tuple(out.shape) != shape or out.dtype != dtype
+                            or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} {dtype} tensor "
+                         f"on {device}")
 
 
 def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                m_block: int, corr: torch.Tensor | None = None,
                row_offset: int = 0, stream_impl: str | None = None,
-               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+               out_dtype: torch.dtype | None = None,
+               bounds: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Run the streamed kernel over ``g`` (B, rows, N), already in the
     dtype it sums in, in strips of ``stream_rows`` rows.
 
@@ -163,14 +235,17 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
     ``out_dtype`` (:func:`check_out_dtype`; default ``g.dtype``).  A
     CUDA operand launches K4 (``stream_impl="grid"``) or K5 (``"dma"``,
     the default) once on the current stream, raising if the launch is
-    refused; a CPU operand takes :func:`stream_plain`.
+    refused; a CPU operand takes :func:`stream_plain`.  ``bounds`` and
+    ``out`` are one half of :func:`inverse_gated`: only the images that
+    half runs are written, into ``out`` when given.
     """
     impl = resolve_impl(stream_impl)
-    _check(g, sign, mode, corr, stream_rows, m_block)
+    _check(g, sign, mode, corr, stream_rows, m_block, bounds)
     if g.device.type == "cpu":
         return stream_plain(g, sign=sign, mode=mode,
                             stream_rows=stream_rows, corr=corr,
-                            row_offset=row_offset, out_dtype=out_dtype)
+                            row_offset=row_offset, out_dtype=out_dtype,
+                            bounds=bounds, out=out)
     if g.device.type != "cuda":
         raise RuntimeError(f"K4/K5 run on CUDA or CPU tensors, not "
                            f"{g.device}")
@@ -181,14 +256,16 @@ def stream_raw(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                        sms=_sms(g.device.index or 0))
     return stream_launch_tile(g, tile, sign=sign, mode=mode, corr=corr,
                               row_offset=row_offset, stream_impl=impl,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, bounds=bounds, out=out)
 
 
 def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
                        mode: str, corr: torch.Tensor | None = None,
                        row_offset: int = 0,
                        stream_impl: str | None = None,
-                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                       out_dtype: torch.dtype | None = None,
+                       bounds: torch.Tensor | None = None,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the streamed kernel over the CUDA operand ``g`` with an
     explicit ``tile`` (:func:`stream_raw` passes
     :func:`.tuning.stream_tile`'s; ``chip_smoke.py`` times others).  The
@@ -196,16 +273,20 @@ def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
     the launch raises if it is refused."""
     global LAUNCHES, NARROW_LAUNCHES
     impl = resolve_impl(stream_impl)
-    _check(g, sign, mode, corr, tile.stage_rows, tile.m_block)
-    out_dtype = check_out_dtype(g, mode, out_dtype)
+    _check(g, sign, mode, corr, tile.stage_rows, tile.m_block, bounds)
+    out_dtype = check_out_dtype(g, mode, out_dtype, bounds is not None)
     if g.device.type != "cuda":
         raise RuntimeError(f"the streamed kernel launches on CUDA tensors, "
                            f"not {g.device}")
     b, rows, n = g.shape
     out_rows = n + 1 if mode == "forward" else n
-    out = torch.empty((b, out_rows, n), dtype=out_dtype, device=g.device)
+    _check_out(out, (b, out_rows, n), out_dtype, g.device)
+    if out is None:
+        out = torch.empty((b, out_rows, n), dtype=out_dtype, device=g.device)
     if b == 0:
         return out
+    narrow = out_dtype != g.dtype
+    tally = _tally(g.device) if bounds is not None and narrow else None
     lib = _lib()
     cuda_stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.stream_launch(
@@ -214,7 +295,9 @@ def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
         None if corr is None else corr.data_ptr(), out.data_ptr(), b, rows,
         n, out_rows, tile.m_block, tile.warps, tile.cols, tile.items,
         tile.stage_rows, tile.slots, int(sign), _MODES[mode],
-        int(row_offset), cuda_stream)
+        int(row_offset), cuda_stream,
+        None if bounds is None else bounds.data_ptr(),
+        None if tally is None else tally.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"streamed kernel launch failed ({impl}, {mode}, B={b}, "
@@ -223,25 +306,41 @@ def stream_launch_tile(g: torch.Tensor, tile: StreamTile, *, sign: int,
     with _build.COUNT_LOCK:
         LAUNCHES += 1
         IMPL_MODE_LAUNCHES[(impl, mode)] += 1
-        NARROW_LAUNCHES += out_dtype != g.dtype
+        NARROW_LAUNCHES += narrow and mode != "inverse"
     _build.note_launch("stream", tile)
     return out
 
 
+def narrow_fits(bounds: torch.Tensor, n: int) -> torch.Tensor:
+    """The gate of each image (``csrc/stream.cu:narrow_fits``), a (B,)
+    bool on ``bounds``' device: its least and largest values fit int32
+    and N (hi - lo) < 2**32, so its inverse sums exactly in 32 bits."""
+    lo, hi = bounds[0], bounds[1]
+    return ((lo >= -2 ** 31) & (hi <= 2 ** 31 - 1)
+            & (hi - lo <= (2 ** 32 - 1) // n))
+
+
 def stream_plain(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
                  corr: torch.Tensor | None = None, row_offset: int = 0,
-                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                 out_dtype: torch.dtype | None = None,
+                 bounds: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K4/K5 (any device), in the streamed
     structure: for each strip of ``min(stream_rows, rows)`` rows, gather
     its partial skew-sum at the strip's global rows into one accumulator
     in ``g.dtype`` and place its row sums; the inverse epilogue runs
     once at the end; the result is stored in ``out_dtype``, as the
-    kernel stores it."""
-    out_dtype = check_out_dtype(g, mode, out_dtype)
+    kernel stores it.  With ``bounds`` it runs one half of
+    :func:`inverse_gated` as the kernel does: an int32 operand's wrapped
+    sums rebuilt from the gate's images' least values (which it adds to
+    the tally), or an int64 operand's other images; the images the half
+    leaves are ``out``'s (zero when not given)."""
+    out_dtype = check_out_dtype(g, mode, out_dtype, bounds is not None)
     b, rows, n = g.shape
     dev = g.device
     h = max(1, min(int(stream_rows), rows))
     out_rows = n + 1 if mode == "forward" else n
+    _check_out(out, (b, out_rows, n), out_dtype, dev)
     acc = torch.zeros((b, out_rows, n), dtype=g.dtype, device=dev)
     d = torch.arange(n, device=dev, dtype=torch.int64)
     for t0 in range(0, rows, h):
@@ -263,8 +362,51 @@ def stream_plain(g: torch.Tensor, *, sign: int, mode: str, stream_rows: int,
             keep = (glob >= 0) & (glob < n)
             acc[:, n, glob[keep]] += strip.sum(2, dtype=g.dtype)[:, keep]
     if mode != "inverse":
-        return acc.to(out_dtype)
-    total = acc + corr[:, :, None]
-    if g.dtype.is_floating_point:
-        return total / n
-    return torch.div(total, n, rounding_mode="floor")
+        res = acc.to(out_dtype)
+    elif bounds is None:
+        total = acc + corr[:, :, None]
+        res = (total / n if g.dtype.is_floating_point
+               else torch.div(total, n, rounding_mode="floor"))
+    else:
+        fits = narrow_fits(bounds, n)
+        if g.dtype == torch.int32:   # the true sum from its low 32 bits
+            base = (n * bounds[0])[:, None, None]
+            total = (base + ((acc.to(torch.int64) - base) & (2 ** 32 - 1))
+                     + corr[:, :, None])
+            _tally(dev).add_(fits.sum())
+        else:
+            total, fits = acc + corr[:, :, None], ~fits
+        got = torch.div(total, n, rounding_mode="floor")
+        keep = torch.zeros_like(got) if out is None else out
+        res = torch.where(fits[:, None, None], got, keep)
+    return res if out is None else out.copy_(res)
+
+
+def inverse_gated(g: torch.Tensor, corr: torch.Tensor, *, stream_rows: int,
+                  m_block: int, stream_impls=(None, None)) -> torch.Tensor:
+    """The streamed inverse of an int64 operand ``g`` (B, N, N) with its
+    int64 ``corr`` (B, N): each image sums in 32 bits where its values
+    allow it (:func:`narrow_fits`), else in 64, chosen on the device.
+
+    One pass, in the span :data:`NARROW_SPAN`, takes the (2, B) bounds
+    (each image's least and largest value) and the operand's low 32
+    bits; then the narrow variant runs on those bits and the int64
+    kernel on ``g``, both with the bounds, each on its images, into one
+    int64 output.  ``stream_impls`` are the two launches' ``stream_impl``
+    (narrow, int64), as ``sfdprt._stream_route`` gives them by width.
+    Nothing waits on the device."""
+    global NARROW_INVERSE_LAUNCHES
+    b, _, n = g.shape
+    with record_function(NARROW_SPAN):
+        bounds = torch.empty((2, b), dtype=torch.int64, device=g.device)
+        torch.aminmax(g.flatten(1), dim=1, out=(bounds[0], bounds[1]))
+        low = g.to(torch.int32)
+    kw = dict(sign=-1, mode="inverse", stream_rows=stream_rows,
+              m_block=m_block, corr=corr, bounds=bounds)
+    narrow_impl, wide_impl = stream_impls
+    out = stream_raw(low, stream_impl=narrow_impl, out_dtype=torch.int64,
+                     **kw)
+    out = stream_raw(g, stream_impl=wide_impl, out=out, **kw)
+    with _build.COUNT_LOCK:
+        NARROW_INVERSE_LAUNCHES += 1
+    return out
